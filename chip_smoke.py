@@ -4,18 +4,29 @@
 
 Builds the port's CUDA kernels from ``vcp_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card at 1080p (exact equality:
-the codec is integer-exact), encodes a synthetic 1080p Y4M end to end
-through ``python -m vcp_tpu_torch.cli encode ... -p h264-nvenc`` on
-``cuda`` with the kernels' launch counters zeroed just before and read
-just after, checks the MP4, checks that the first GOP's NAL units are
-byte-identical between ``cuda`` and ``cpu`` (plain versions), and prints
+the codec is integer-exact), and drives the port's two main paths end to
+end through ``python -m vcp_tpu_torch.cli encode`` on ``cuda``, each with
+the kernels' launch counters zeroed just before and read just after:
+
+* the speed shape, ``-p h264-nvenc`` (full-pel ME with the fused
+  search + prediction kernel, row-pattern IDR);
+* the half-pel quality shape, ``-c:v libx264 -preset medium -bf 0``
+  (half-pel ME, adaptive 8x8 transform, RD intra IDR), once as it comes
+  (pyramid search) and once with ``VCP_HIER_ME=0``, which sends the
+  full-pel search through the search-only kernel.
+
+It checks each MP4, checks that a GOP's NAL units are byte-identical
+between ``cuda`` and ``cpu`` (plain versions) on both paths, and prints
 per-kernel times beside their bounds. Any failed phase raises, so the
 exit code is nonzero; without a CUDA device it exits 2 and prints no
-result. Imports nothing of JAX or of ``vcp_tpu``.
+result. ``--kernels-only`` stops after the kernel checks (a short first
+run after a kernel change) and prints no result line. Imports nothing of
+JAX or of ``vcp_tpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -31,12 +42,34 @@ H, W = 1080, 1920            # source frame (padded to 1088 x 1920)
 HP = 1088                    # padded luma height
 N_FRAMES = 40
 SCENE_CUT = 24               # first frame of the second scene
+Q_ARGS = ("-c:v libx264 -preset medium -bf 0 -b:v 10M "
+          "-movflags +faststart")      # the half-pel quality shape
+Q_FRAMES = 12
+Q_CUT = 8
+Q_SR = 12                    # its search range (effort 5)
+DEVICE = "cuda"              # the device every main path is driven on
 PSNR_FLOOR_DB = 35.0         # recon luma PSNR floor of the first GOP
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the CUDA-core
 # float32 rate taken as the integer-op ceiling (int32 runs at no more
 # than this rate).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+
+
+@contextlib.contextmanager
+def scoped_env(env: dict | None):
+    """Set environment variables for the duration of the block."""
+    env = env or {}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def log(msg: str) -> None:
@@ -95,9 +128,10 @@ def max_abs_err(outs, refs) -> int:
 # ---------------------------------------------------------------------------
 
 def check_motion(dev, h, w, reps):
+    """Both instantiations of the search kernel: with the fused prediction
+    at the speed shape's range, search-only at the quality shape's."""
     from vcp_tpu_torch.ops import motion, motion_cuda
     rng = np.random.default_rng(1)
-    sr = 8
     yy, xx = np.mgrid[0:h, 0:w]
     base = (128 + 60 * np.sin(xx / 23.0) * np.cos(yy / 31.0)).astype(np.int32)
     noisy_cur = np.clip(base + rng.integers(-20, 21, (h, w)), 0, 255)
@@ -108,37 +142,49 @@ def check_motion(dev, h, w, reps):
     flat_ref = np.roll(flat_cur, (8, 5), (0, 1))
     cases = [("shifted+noise", noisy_cur, noisy_ref),
              ("flat", flat_cur, flat_ref)]
-    err = 0
+    errs = {True: 0, False: 0}          # by with_pred
     for name, c, r in cases:
         cur = torch.as_tensor(c, dtype=torch.int32, device=dev).contiguous()
         ref = torch.as_tensor(r, dtype=torch.int32, device=dev).contiguous()
-        for lam in (0, 22):
+        for sr, lam in ((8, 0), (8, 22), (Q_SR, 8)):
             mv_p, _ = motion.full_search(cur, ref, sr, lam)
             pred_p = motion.mc_luma(ref, mv_p, sr)
             mv_k = motion_cuda.motion_search(cur, ref, sr, lam)
             mv_k2, pred_k = motion_cuda.motion_search(cur, ref, sr, lam,
                                                       with_pred=True)
-            e = max_abs_err((mv_k, mv_k2, pred_k), (mv_p, mv_p, pred_p))
-            log(f"  motion_search {name} lam={lam}: max_abs_err {e}")
-            err = max(err, e)
-    if err:
-        raise AssertionError(f"motion_search disagrees (max err {err})")
+            e_only = max_abs_err((mv_k,), (mv_p,))
+            e_pred = max_abs_err((mv_k2, pred_k), (mv_p, pred_p))
+            log(f"  motion_search {name} sr={sr} lam={lam}: max_abs_err "
+                f"{e_pred} with pred, {e_only} search only")
+            errs[True] = max(errs[True], e_pred)
+            errs[False] = max(errs[False], e_only)
+    if errs[True] or errs[False]:
+        raise AssertionError(f"motion_search disagrees (max err {errs})")
     cur = torch.as_tensor(noisy_cur, dtype=torch.int32, device=dev)
     ref = torch.as_tensor(noisy_ref, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: motion_cuda.motion_search(cur, ref, sr, 22,
-                                                   with_pred=True), dev, reps)
-    plain_ms = time_ms(lambda: motion.mc_luma(
-        ref, motion.full_search(cur, ref, sr, 22)[0], sr), dev,
-        max(1, reps // 10))
     n_mb = (h // 16) * (w // 16)
-    nbytes = 3 * h * w * 4 + n_mb * 2 * 4      # cur, ref in; pred, mv out
-    nops = n_mb * (2 * sr + 1) ** 2 * 256 * 3  # sub, abs, add per pixel
-    bms, by = bound_ms(nbytes, nops)
-    return {"name": "motion_search", "route": "cuda",
-            "source": "vcp_tpu_torch/csrc/motion_search.cu",
-            "replaces": "vcp_tpu/ops/motion_pallas.py:207",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    rows = []
+    for with_pred, sr, lam, name, line in (
+            (True, 8, 22, "motion_search", 207),
+            (False, Q_SR, 8, "motion_search_only", 225)):
+        ms = time_ms(lambda: motion_cuda.motion_search(
+            cur, ref, sr, lam, with_pred=with_pred), dev, reps)
+
+        def plain():
+            mv = motion.full_search(cur, ref, sr, lam)[0]
+            return motion.mc_luma(ref, mv, sr) if with_pred else mv
+        plain_ms = time_ms(plain, dev, max(1, reps // 10))
+        # cur, ref in; mv (and pred) out; sub, abs, add per pixel and offset
+        nbytes = (3 if with_pred else 2) * h * w * 4 + n_mb * 2 * 4
+        nops = n_mb * (2 * sr + 1) ** 2 * 256 * 3
+        bms, by = bound_ms(nbytes, nops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "vcp_tpu_torch/csrc/motion_search.cu",
+                     "replaces": f"vcp_tpu/ops/motion_pallas.py:{line}",
+                     "max_abs_err": errs[with_pred], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None, "search_range": sr})
+    return rows
 
 
 def _deblock_planes(rng, h, w):
@@ -246,8 +292,55 @@ def check_deblock_general(dev, h, w, reps):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def check_deblock_general_no_strong(dev, h, w, reps):
+    """The strong=False instantiation on an all-inter frame (bS <= 3)
+    whose QP differs from MB to MB, the case deblock_fast cannot take."""
+    from vcp_tpu_torch.ops import deblock, deblock_cuda
+    rng = np.random.default_rng(4)
+    n_mby, n_mbx = h // 16, w // 16
+    y, u, v = (torch.as_tensor(p, dtype=torch.int32, device=dev)
+               for p in _deblock_planes(rng, h, w))
+    intra = torch.zeros((n_mby, n_mbx), dtype=torch.bool, device=dev)
+    nz = torch.as_tensor(rng.random((h // 4, w // 4)) < 0.3, device=dev)
+    mv = torch.as_tensor(
+        (rng.random((n_mby, n_mbx, 1)) < 0.3)
+        * rng.integers(-8, 9, (n_mby, n_mbx, 2)), dtype=torch.int32,
+        device=dev)
+    qp_mb = torch.as_tensor(rng.integers(20, 45, (n_mby, n_mbx)),
+                            dtype=torch.int32, device=dev)
+    bs_v = deblock.compute_bs_luma(intra, nz, mv, True)
+    bs_h = deblock.compute_bs_luma(intra, nz, mv, False)
+    if int(max(bs_v.max(), bs_h.max())) > 3 or len(qp_mb.unique()) < 2:
+        raise AssertionError("inputs must be bS <= 3 with non-uniform QP")
+    grids = deblock.threshold_grids(bs_v, bs_h, qp_mb)
+    ref = deblock.deblock_general_plain(y, u, v, *grids, strong=False)
+    out = deblock_cuda.deblock_general(y, u, v, *grids, strong=False)
+    err = max_abs_err(out, ref)
+    log(f"  deblock_general strong=False, per-MB QP, bS <= 3: max_abs_err "
+        f"{err} (luma samples changed {int((ref[0] != y).sum())})")
+    if err:
+        raise AssertionError(f"deblock_general(strong=False) disagrees "
+                             f"(max err {err})")
+    ms = time_ms(lambda: deblock_cuda.deblock_general(
+        y, u, v, *grids, strong=False), dev, reps)
+    plain_ms = time_ms(lambda: deblock.deblock_general_plain(
+        y, u, v, *grids, strong=False), dev, max(1, reps // 10))
+    luma, chroma = _filtered_lines(bs_v, bs_h)
+    plane_bytes = (h * w + 2 * (h // 2) * (w // 2)) * 4
+    nbytes = 2 * plane_bytes + sum(g.numel() for g in grids) * 4
+    bms, by = bound_ms(nbytes, luma * 35 + chroma * 20)
+    return {"name": "deblock_general_no_strong", "route": "cuda",
+            "source": "vcp_tpu_torch/csrc/deblock.cu",
+            "replaces": "vcp_tpu/ops/deblock_pallas.py:424",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "note": "strong=False; its one caller in vcp_tpu is the "
+                    "multi-chip step (ROADMAP A10), so no main path of the "
+                    "port launches it yet"}
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the main path through the CLI
+# Phase 3: the main paths through the CLI
 # ---------------------------------------------------------------------------
 
 def synth_frames(h: int, w: int, n: int, cut: int, seed: int = 0):
@@ -298,91 +391,213 @@ def check_mp4(path: str, n_frames: int, idrs: list[int]) -> None:
         f"sync samples {sync}")
 
 
-def run_main_path(frames, tmp: str, dev: str = "cuda") -> dict:
+def synth_frames_subpel(h: int, w: int, n: int, cut: int, seed: int = 1):
+    """A gradient half and a texture half that move by a fractional number
+    of pixels per frame (1.5 across, 0.5 down), plus noise, so half-pel
+    vectors win and i8 / I16 and both transforms each win somewhere;
+    inverted from frame ``cut`` on (a scene cut)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cy, cx = np.mgrid[0:h // 2, 0:w // 2].astype(np.float32)
+    frames = []
+    for t in range(n):
+        x, yv = xx + 1.5 * t, yy + 0.5 * t
+        grad = 60 + 0.05 * x + 0.04 * yv + 20 * np.sin(x / 67.0)
+        tex = 128 + 60 * np.sin(x / 2.9) * np.cos(yv / 3.7)
+        y = np.where(xx < w // 2, grad, tex) + rng.integers(-3, 4, (h, w))
+        u = 128 + 30 * np.sin((cx + 0.75 * t) / 37.0)
+        v = 128 + 30 * np.cos((cy + 0.25 * t) / 23.0)
+        f = tuple(np.clip(p, 0, 255).astype(np.uint8) for p in (y, u, v))
+        frames.append(tuple(255 - p for p in f) if t >= cut else f)
+    return frames
+
+
+def launch_counters() -> dict:
+    """name -> (object, attribute) of every kernel's launch count."""
+    from vcp_tpu_torch.ops import deblock_cuda, motion_cuda
+    return {
+        "motion_search": (motion_cuda.motion_search, "launches_with_pred"),
+        "motion_search_only": (motion_cuda.motion_search,
+                               "launches_search_only"),
+        "deblock_fast": (deblock_cuda.deblock_fast, "launches"),
+        "deblock_general": (deblock_cuda.deblock_general, "launches"),
+        "deblock_general_no_strong": (deblock_cuda.deblock_general,
+                                      "launches_no_strong"),
+    }
+
+
+@contextlib.contextmanager
+def observe_encoder(seen: dict):
+    """While active, record what the CLI's encoder does without changing
+    it: the encoder objects (for ``stage_s``), the share of i8 MBs of
+    every IDR, and the t8 MBs and half-pel vectors of every P slice."""
+    from vcp_tpu_torch.codec.h264 import encoder, entropy
+    real_enc = encoder.H264Encoder
+    real_i, real_p = entropy.write_islice, entropy.write_pslice
+
+    class Observed(real_enc):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.setdefault("encoders", []).append(self)
+
+    def islice(*a, **kw):
+        i8 = kw["data"].get("i8")
+        seen.setdefault("i8_share", []).append(
+            0.0 if i8 is None else float(np.mean(i8)))
+        return real_i(*a, **kw)
+
+    def pslice(*a, **kw):
+        d = kw["data"]
+        seen["t8_mbs"] = seen.get("t8_mbs", 0) + (
+            int(d["t8"].sum()) if "t8" in d else 0)
+        seen["half_pel_mvs"] = seen.get("half_pel_mvs", 0) + int(
+            ((d["mv"] & 3) == 2).any(axis=-1).sum())
+        return real_p(*a, **kw)
+
+    encoder.H264Encoder = Observed
+    entropy.write_islice, entropy.write_pslice = islice, pslice
+    try:
+        yield seen
+    finally:
+        encoder.H264Encoder = real_enc
+        entropy.write_islice, entropy.write_pslice = real_i, real_p
+
+
+def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
+                  idrs: list[int], must_launch: tuple[str, ...],
+                  env: dict | None = None) -> tuple[dict, dict]:
+    """One CLI encode on cuda with every launch count set to 0 just before
+    and read just after; returns (launches by kernel, what was seen)."""
     from vcp_tpu_torch import cli
     from vcp_tpu_torch.codec.y4m import write_y4m
-    from vcp_tpu_torch.ops import deblock_cuda, motion_cuda
-    src = os.path.join(tmp, "in.y4m")
-    dst = os.path.join(tmp, "out.mp4")
+    src = os.path.join(tmp, f"{label}.y4m")
+    dst = os.path.join(tmp, f"{label}.mp4")
     write_y4m(src, frames, 30, 1)
-    counters = (motion_cuda.motion_search, deblock_cuda.deblock_fast,
-                deblock_cuda.deblock_general)
-    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    for fn in counters:
-        fn.launches = 0
-    sync()
-    t0 = time.monotonic()
-    rc = cli.main(["encode", src, dst, "-p", "h264-nvenc", "--device", dev])
-    sync()
-    wall = time.monotonic() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    counters = launch_counters()
+    seen: dict = {}
+    with scoped_env(env), observe_encoder(seen):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rc = cli.main(["encode", src, dst, *cli_args, "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: getattr(fn, attr)
+                    for k, (fn, attr) in counters.items()}
     if rc != 0:
         raise RuntimeError(f"cli encode exited {rc}")
-    log(f"  main path: {len(frames)} frames {frames[0][0].shape} in {wall:.3f} s "
-        f"({len(frames) / wall:.2f} fps), launches {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing and dev == "cuda":
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    check_mp4(dst, len(frames), [0, SCENE_CUT])
-    return launches
+    stages = {k: round(sum(e.stage_s[k] for e in seen["encoders"]), 3)
+              for k in seen["encoders"][0].stage_s}
+    log(f"  {label}: {len(frames)} frames {frames[0][0].shape} in "
+        f"{wall:.3f} s ({len(frames) / wall:.2f} fps), launches "
+        f"{launches}, stage_s {stages}")
+    missing = [k for k in must_launch if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path "
+                             f"{label}: {missing}")
+    check_mp4(dst, len(frames), idrs)
+    return launches, seen
+
+
+def check_quality_tools(label: str, seen: dict) -> None:
+    """The quality shape used what it adds: i8 and I16 MBs in an IDR, t8
+    MBs and half-pel vectors in P slices."""
+    log(f"  {label}: i8 share per IDR {seen['i8_share']}, t8 MBs "
+        f"{seen['t8_mbs']}, MBs with a half-pel vector "
+        f"{seen['half_pel_mvs']}")
+    if not (any(0 < s for s in seen["i8_share"])
+            and any(s < 1 for s in seen["i8_share"])):
+        raise AssertionError("no IDR MB chose i8, or none chose I16")
+    if not seen["t8_mbs"] > 0:
+        raise AssertionError("no P MB chose the 8x8 transform")
+    if not seen["half_pel_mvs"] > 0:
+        raise AssertionError("no vector has a half-pel phase")
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: cuda vs cpu on the first GOP
+# Phase 4: cuda vs cpu on one GOP of each path
 # ---------------------------------------------------------------------------
 
-def check_devices(frames, devices=("cuda", "cpu")) -> None:
+def check_devices(label: str, frames, ffargs: str) -> None:
     from vcp_tpu_torch.codec.args import parse_encode_args
     from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
-    from vcp_tpu_torch.config import BUILTIN_PRESETS
-    params = parse_encode_args(BUILTIN_PRESETS["h264-nvenc"])
+    params = parse_encode_args(ffargs)
     h, w = frames[0][0].shape
-    gop = frames[:9]
+    devices = (DEVICE, "cpu")
     out = {}
     for dev in devices:
         cfg = EncoderConfig.from_params(params, w, h, 30, 1)
         enc = H264Encoder(cfg, device=dev)
         t0 = time.monotonic()
-        out[dev] = enc.encode_gop(gop)
+        out[dev] = enc.encode_gop(frames)
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
-        log(f"  first GOP (IDR + 8 P) on {dev}: "
+        log(f"  {label} GOP (IDR + {len(frames) - 1} P) on {dev}: "
             f"{time.monotonic() - t0:.3f} s, qp {cfg.qp} ({stages})")
         if dev == devices[0]:
             ry = enc.recon_planes[0].astype(np.float64)
-            mse = float(np.mean((ry - gop[-1][0].astype(np.float64)) ** 2))
+            mse = float(np.mean((ry - frames[-1][0].astype(np.float64))
+                                ** 2))
             psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
-            log(f"  recon luma PSNR of frame 8: {psnr:.2f} dB "
+            log(f"  recon luma PSNR of the last frame: {psnr:.2f} dB "
                 f"(floor {PSNR_FLOOR_DB})")
             if not psnr > PSNR_FLOOR_DB:
                 raise AssertionError(f"PSNR {psnr:.2f} dB below floor")
     a, b = (out[d] for d in devices)
     same = len(a) == len(b) and all(x == y for x, y in zip(a, b))
-    log(f"  NAL units {devices[0]} == {devices[1]}: {same} ({len(a)} access units, "
-        f"{sum(len(x[0]) for x in a)} bytes)")
+    log(f"  NAL units {devices[0]} == {devices[1]}: {same} ({len(a)} "
+        f"access units, {sum(len(x[0]) for x in a)} bytes)")
     if not same:
-        raise AssertionError("cuda and cpu bitstreams differ")
+        raise AssertionError(f"{label}: cuda and cpu bitstreams differ")
 
 
-def profile_gop(frames) -> None:
-    """Device time of one GOP (IDR + 8 P) on cuda, by kernel, from
-    torch.profiler; the wall clock includes the profiler's overhead."""
+def check_pyramid_pstep(frames) -> None:
+    """One half-pel P frame with the pyramid search (plain tensor code on
+    both devices) from the same reference: cuda == cpu."""
+    from vcp_tpu_torch.codec.h264 import gop_ops
+    from vcp_tpu_torch.codec.h264.frame_ops import pad_plane
+    planes = [[pad_plane(p, a) for p, a in zip(f, (16, 8, 8))]
+              for f in frames[:2]]
+    h, w = planes[0][0].shape
+    buf = gop_ops.pack_frames([planes[1]])
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        ref = [torch.from_numpy(p).to(dev) for p in planes[0]]
+        res = gop_ops.encode_pchunk_sparse(
+            torch.from_numpy(buf).to(dev), *ref, 24, 24, Q_SR, 8, h, w,
+            True, 1, True)
+        out[dev] = [t.cpu() for t in res]
+    mc, bc = (int(c) for c in out["cpu"][1])
+    same = all(torch.equal(a[:n], b[:n]) for a, b, n in zip(
+        out[DEVICE], out["cpu"], (None, None, mc, bc, None, None, None)))
+    log(f"  pyramid-search P frame cuda == cpu: {same} ({mc} active MBs)")
+    if not same:
+        raise AssertionError("pyramid-search P frame differs between "
+                             "cuda and cpu")
+
+
+def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
+                env: dict | None = None) -> None:
+    """Device time of one GOP on cuda, by kernel, from torch.profiler; the
+    wall clock includes the profiler's overhead. ``cpu_ops=False`` traces
+    the device side only (a GOP with several hundred thousand launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from vcp_tpu_torch.codec.args import parse_encode_args
     from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
-    from vcp_tpu_torch.config import BUILTIN_PRESETS
     h, w = frames[0][0].shape
-    cfg = EncoderConfig.from_params(
-        parse_encode_args(BUILTIN_PRESETS["h264-nvenc"]), w, h, 30, 1)
-    enc = H264Encoder(cfg, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        enc.encode_gop(frames[:9])
+    with scoped_env(env):
+        cfg = EncoderConfig.from_params(parse_encode_args(ffargs), w, h, 30,
+                                        1)
+        enc = H264Encoder(cfg, device="cuda")
         torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+        acts = [ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu_ops else [])
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            enc.encode_gop(frames)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -391,20 +606,26 @@ def profile_gop(frames) -> None:
             acc[1] += e.time_range.elapsed_us() / 1e3
     busy = sum(v[1] for v in by_name.values())
     n = sum(v[0] for v in by_name.values())
-    log(f"  profiled GOP: wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy:.1f} ms over {n} device kernels/copies (idle share "
-        f"{1 - busy / (wall * 1e3):.3f})")
+    if n == 0:
+        raise AssertionError("the profiler saw no device activity")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
+    log(f"  profiled {label} GOP (IDR + {len(frames) - 1} P): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms over {n} device "
+        f"kernels/copies (idle share {1 - busy / (wall * 1e3):.3f}); "
+        f"{stages}")
     for name, (cnt, ms) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][1])[:10]:
         log(f"    {ms:9.3f} ms {cnt:6d}x  {name[:90]}")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     from vcp_tpu_torch import device as devmod
+    from vcp_tpu_torch import native
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
 
     dev = torch.device("cuda", 0)
     card = gpu_line()
@@ -415,32 +636,65 @@ def main() -> int:
     for src in devmod.SOURCES:
         devmod.kernel_lib(src)
     log(f"kernels built in {time.monotonic() - t0:.1f} s")
+    # the host CABAC writers too, so that no main path's clock holds a
+    # compiler run
+    t0 = time.monotonic()
+    native.get_lib()
+    log(f"host entropy library built in {time.monotonic() - t0:.1f} s")
 
     log("phase 2: kernels vs plain versions at 1088x1920")
-    rows = [check_motion(dev, HP, W, reps=20),
+    rows = [*check_motion(dev, HP, W, reps=20),
             check_deblock_fast(dev, HP, W, reps=20),
-            check_deblock_general(dev, HP, W, reps=20)]
+            check_deblock_general(dev, HP, W, reps=20),
+            check_deblock_general_no_strong(dev, HP, W, reps=20)]
     torch.cuda.synchronize()
-
-    log("phase 3: main path, cli encode -p h264-nvenc on cuda")
-    frames = synth_frames(H, W, N_FRAMES, SCENE_CUT)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches = run_main_path(frames, tmp)
-
-    log("phase 4: first GOP, cuda vs cpu")
-    check_devices(frames)
-    log("phase 5: device time of one GOP on cuda (torch.profiler)")
-    profile_gop(frames)
-
     for row in rows:
-        row["launches"] = launches[row["name"]]
         log(f"  {row['name']}: {row['ms']:.4f} ms (plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms by "
-            f"{row['bound_by']}), launches {row['launches']}")
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            f"{row['bound_by']})")
+    if "--kernels-only" in argv:
+        print("kernels only: main paths not driven, no result")
+        return 0
+
+    log("phase 3: main paths, cli encode on cuda")
+    frames = synth_frames(H, W, N_FRAMES, SCENE_CUT)
+    qframes = synth_frames_subpel(H, W, Q_FRAMES, Q_CUT)
+    q_cli = [f"--ffmpeg-args={Q_ARGS}"]
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["h264-nvenc"], _ = run_main_path(
+            "h264-nvenc", frames, tmp, ["-p", "h264-nvenc"],
+            [0, SCENE_CUT],
+            ("motion_search", "deblock_fast", "deblock_general"))
+        by_path["medium-bf0"], seen = run_main_path(
+            "medium-bf0", qframes, tmp, q_cli, [0, Q_CUT],
+            ("deblock_fast", "deblock_general"))
+        check_quality_tools("medium-bf0", seen)
+        by_path["medium-bf0-exhaustive"], seen = run_main_path(
+            "medium-bf0-exhaustive", qframes, tmp, q_cli, [0, Q_CUT],
+            ("motion_search_only", "deblock_fast", "deblock_general"),
+            env={"VCP_HIER_ME": "0"})
+        check_quality_tools("medium-bf0-exhaustive", seen)
+
+    log("phase 4: one GOP, cuda vs cpu")
+    check_devices("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
+    with scoped_env({"VCP_HIER_ME": "0"}):
+        check_devices("medium-bf0-exhaustive", qframes[:3], Q_ARGS)
+    check_pyramid_pstep(qframes)
+    log("phase 5: device time of one GOP on cuda (torch.profiler)")
+    profile_gop("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
+    profile_gop("medium-bf0-exhaustive", qframes[:3], Q_ARGS, cpu_ops=False,
+                env={"VCP_HIER_ME": "0"})
+
+    for row in rows:
+        row["launches_by_path"] = {k: v[row["name"]]
+                                   for k, v in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        log(f"  {row['name']}: {row['ms']:.4f} ms (plain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms by "
+            f"{row['bound_by']}), launches {row['launches']} "
+            f"{row['launches_by_path']}")
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -449,4 +703,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

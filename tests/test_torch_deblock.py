@@ -63,6 +63,30 @@ def test_bs_and_qp_edges(vertical, intra_all):
                                            jtf.CHROMA_QP_FULL)))
 
 
+@pytest.mark.parametrize("vertical", [True, False])
+@pytest.mark.parametrize("intra_all", [True, False])
+def test_bs_with_t8_grid(vertical, intra_all):
+    """Interior 4-offset edges of transform-8x8 MBs get bS 0."""
+    y, u, v, qp_mb, intra, nz, mv = _frame(33, 64, 96, intra_all)
+    t8 = np.random.default_rng(34).random(qp_mb.shape) < 0.5
+    got = td.compute_bs_luma(_t(intra), _t(nz), _t(mv), vertical,
+                             t8=_t(t8)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jd.compute_bs_luma(intra, nz, mv, vertical, t8=t8)))
+    plain = td.compute_bs_luma(_t(intra), _t(nz), _t(mv), vertical).numpy()
+    assert (got != plain).any() and (got[1::2] == plain[1::2]).all()
+
+
+@pytest.mark.parametrize("intra_all,no_strong", [(True, False),
+                                                 (False, True)])
+def test_deblock_frame_with_t8_matches_xla(intra_all, no_strong):
+    args = _frame(12, 64, 80, intra_all)
+    t8 = np.random.default_rng(35).random(args[3].shape) < 0.5
+    kw = dict(no_strong=no_strong, qp_scalar=30 if no_strong else None)
+    ref = jd.deblock_frame(*args, jtf.CHROMA_QP_FULL, t8=t8, **kw)
+    _eq(td.deblock_frame(*map(_t, args), t8=_t(t8), **kw), ref)
+
+
 def test_tables_and_scalars():
     for name in ("ALPHA", "BETA", "TC0"):
         np.testing.assert_array_equal(getattr(td, name), getattr(jd, name))
@@ -75,10 +99,14 @@ def test_tables_and_scalars():
 
 def test_wrappers_on_cpu_do_not_launch():
     y, u, v, qp_mb, intra, nz, mv = _frame(5, 32, 48, False)
-    before = (deblock_cuda.deblock_fast.launches,
-              deblock_cuda.deblock_general.launches)
+    def counts():
+        return (deblock_cuda.deblock_fast.launches,
+                deblock_cuda.deblock_general.launches,
+                deblock_cuda.deblock_general.launches_no_strong)
+    before = counts()
     td.deblock_frame(*map(_t, (y, u, v, qp_mb, intra, nz, mv)))
     td.deblock_frame(*map(_t, (y, u, v, qp_mb, intra, nz, mv)),
                      no_strong=True, qp_scalar=30)
-    assert (deblock_cuda.deblock_fast.launches,
-            deblock_cuda.deblock_general.launches) == before
+    td.deblock_frame(*map(_t, (y, u, v, qp_mb, intra, nz, mv)),
+                     no_strong=True)
+    assert counts() == before

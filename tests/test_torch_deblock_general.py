@@ -1,6 +1,6 @@
 """deblock_general (plain version on the CPU) against vcp_tpu's
-threshold-grid Pallas deblock kernel with the strong filter, interpret
-mode, exact equality."""
+threshold-grid Pallas deblock kernel, with the strong filter and without
+it (all-inter, per-MB QP), interpret mode, exact equality."""
 
 import numpy as np
 import pytest
@@ -42,7 +42,6 @@ def _jax_grids(intra, nz, mv, qp_mb, cqp):
     return vthr, hthr, cvthr, chthr
 
 
-
 @pytest.mark.parametrize("shape,intra_all", CASES)
 def test_general_matches_pallas_kernel(shape, intra_all):
     """deblock_general_plain (the CUDA kernel's reference) against the
@@ -61,3 +60,31 @@ def test_general_matches_pallas_kernel(shape, intra_all):
     for a, b in zip(tgrids, grids):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     _eq(deblock_cuda.deblock_general(_t(y), _t(u), _t(v), *tgrids), ref)
+
+
+@pytest.mark.parametrize("shape", [(64, 80), (48, 64)])
+def test_general_no_strong_matches_pallas_kernel(shape):
+    """strong=False on an all-inter frame (bS <= 3) whose QP differs from
+    MB to MB, the case the uniform-QP form cannot take: the plain version
+    against ``wavefront_pallas`` with strong=False, interpret mode."""
+    y, u, v, qp_mb, intra, nz, mv = _frame(17, *shape, False)
+    h, w = shape
+    qp_mb = np.random.default_rng(18).integers(20, 45, qp_mb.shape) \
+        .astype(np.int32)
+    bs_v = jd.compute_bs_luma(intra, nz, mv, True)
+    bs_h = jd.compute_bs_luma(intra, nz, mv, False)
+    assert int(np.asarray(bs_v).max()) <= 3 and len(np.unique(qp_mb)) > 1
+    grids = _jax_grids(jnp.asarray(intra), jnp.asarray(nz),
+                       jnp.asarray(mv), jnp.asarray(qp_mb),
+                       jtf.CHROMA_QP_FULL)
+    ref = jd._deblock_pallas(y, u, v, *grids, h // 16, w // 16,
+                             interpret=True, strong=False)
+    tgrids = td.threshold_grids(_t(np.asarray(bs_v)), _t(np.asarray(bs_h)),
+                                _t(qp_mb))
+    out = deblock_cuda.deblock_general(_t(y), _t(u), _t(v), *tgrids,
+                                       strong=False)
+    _eq(out, ref)
+    assert not np.array_equal(out[0].numpy(), y)
+    # and through deblock_frame's own route for this case
+    _eq(td.deblock_frame(*map(_t, (y, u, v, qp_mb, intra, nz, mv)),
+                         no_strong=True), ref)

@@ -46,6 +46,9 @@ def test_encode_stream_nal_units_match(frames, deblock):
         assert a == b, f"access unit {k} differs"
 
 
+QUALITY = "-c:v libx264 -preset medium -bf 0"
+
+
 @pytest.mark.parametrize("args", [
     ["-p", "h264-nvenc"],
     # a bitrate this small makes the ABR controller move the QP per GOP
@@ -105,20 +108,33 @@ def test_default_device_raises_without_cuda(monkeypatch, frames, tmp_path):
 
 
 @pytest.mark.parametrize("preset,env,match", [
-    ("h264-cpu", {}, "effort 5"),
+    ("h264-cpu", {}, "B pictures.*A1a"),
     ("h264-nvenc", {"VCP_CABAC": "0"}, "CAVLC"),
     ("h264-nvenc", {"VCP_BFRAMES": "2"}, "B pictures"),
     ("h265-nvenc", {}, "HEVC"),
     ("copy", {}, "copy preset"),
+    (f"={QUALITY}", {"VCP_T8": "0"}, "VCP_T8=0.*A1c"),
+    (f"={QUALITY}", {"VCP_RDI": "0"}, "without RD intra.*A1c"),
+    (f"={QUALITY}", {"VCP_CABAC": "0"}, "CAVLC"),
+    ("=-c:v libx264 -preset slow", {}, "B pictures"),
+    ("=-c:v libx264 -preset slower -bf 0", {}, "effort 7 .quarter-pel.*A1b"),
+    ("=-c:v libx264 -preset veryslow", {}, "B pictures.*effort 8"),
+    ("=-c:v h264_nvenc -preset p4", {"VCP_T8": "1"}, "8x8 transform below"),
+    ("=-c:v h264_nvenc -preset p4", {"VCP_RDI": "1"}, "RD intra below"),
+    ("=-c:v h264_nvenc -preset p4", {"VCP_PARTS": "1"}, "partitions"),
 ])
 def test_settings_outside_the_slice_raise(preset, env, match, frames,
                                           tmp_path, monkeypatch):
+    """``preset`` names a built-in preset, or, after "=", raw encode
+    arguments."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     src = str(tmp_path / "in.y4m")
     write_y4m(src, frames[:2])
+    how = [f"--ffmpeg-args{preset}"] if preset.startswith("=") \
+        else ["-p", preset]
     with pytest.raises(NotImplementedError, match=match):
-        t_cli.main(["encode", src, str(tmp_path / "o.mp4"), "-p", preset,
+        t_cli.main(["encode", src, str(tmp_path / "o.mp4"), *how,
                     "--device", "cpu"])
 
 
@@ -138,18 +154,24 @@ def test_recon_planes_psnr(frames):
     assert 10 * np.log10(255.0 ** 2 / mse) > 35.0
 
 
-@pytest.mark.parametrize("width,height,cabac", [(96, 64, True),
-                                                (1920, 1080, True),
-                                                (100, 50, False)])
-def test_headers_match(width, height, cabac):
+@pytest.mark.parametrize("width,height,cabac,high", [
+    (96, 64, True, False), (1920, 1080, True, False), (100, 50, False, False),
+    (1920, 1080, True, True)])
+def test_headers_match(width, height, cabac, high):
     from vcp_tpu.codec.h264 import headers as jh
     from vcp_tpu.utils.bitstream import BitWriter as JW
     from vcp_tpu_torch.codec.h264 import headers as th
     from vcp_tpu_torch.utils.bitstream import BitWriter as TW
-    assert th.write_sps(th.SeqParams(width, height)) == \
-        jh.write_sps(jh.SeqParams(width, height))
-    assert th.write_pps(th.PicParams(cabac=cabac)) == \
-        jh.write_pps(jh.PicParams(cabac=cabac))
+    skw = {"profile_idc": 100} if high else {}
+    assert th.write_sps(th.SeqParams(width, height, **skw)) == \
+        jh.write_sps(jh.SeqParams(width, height, **skw))
+    assert th.write_pps(th.PicParams(cabac=cabac, transform_8x8=high)) == \
+        jh.write_pps(jh.PicParams(cabac=cabac, transform_8x8=high))
+    if high:
+        cfg = te.EncoderConfig(width=width, height=height, effort=5,
+                               transform8=True)
+        enc = te.H264Encoder(cfg, device="cpu")
+        assert enc.sp.profile_idc == 100 and enc.pp.transform_8x8
     for is_idr, deblock in ((True, True), (False, True), (False, False)):
         kw = dict(is_idr=is_idr, frame_num=3, slice_qp=31, idr_pic_id=2,
                   disable_deblocking=not deblock)

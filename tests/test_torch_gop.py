@@ -9,13 +9,17 @@ import pytest
 import torch
 
 from vcp_tpu.codec.h264 import cabac_tables as j_cabac
+from vcp_tpu.codec.h264 import decoder as j_decoder
 from vcp_tpu.codec.h264 import frame_ops as j_frame
 from vcp_tpu.codec.h264 import gop_ops as jg
 from vcp_tpu.codec.h264 import tables as j_tables
 from vcp_tpu.ops import deblock as j_deblock
 from vcp_tpu.ops import transform as jtf
+from vcp_tpu.ops import transform8 as jt8
 from vcp_tpu_torch import state
 from vcp_tpu_torch.codec.h264 import gop_ops as tg
+
+from test_torch_encoder_quality import moving_frames
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "gradmotion_320x192.npz")
@@ -46,6 +50,10 @@ def reference_tables():
         "DECIMATE_TAB": jg._DECIMATE_TAB,
         "CTX_INIT_I": np.asarray(j_cabac.CTX_INIT_I),
         "CTX_INIT_PB": np.asarray(j_cabac.CTX_INIT_PB),
+        "MF8_TABLE": jt8.MF8_TABLE, "V8_TABLE": jt8.V8_TABLE,
+        "ZIGZAG_8x8": jt8.ZIGZAG_8x8,
+        "I8_TABS": np.stack([np.stack(j_decoder._I8_TABS[m])
+                             for m in range(3, 9)]),
     }
 
 
@@ -91,7 +99,14 @@ def test_pchunk_sparse_from_reference_state(frames, deblock):
     jo = jg.encode_pchunk_sparse(buf, *recon, qp, qpc, 8, 5, h, w, deblock,
                                  0, False)
     to = tg.encode_pchunk_sparse(_t(buf), *st.recon, qp, qpc, 8, 5, h, w,
-                                 deblock)
+                                 deblock, 0, False)
+    _assert_chunks_equal(to, jo, h, w)
+
+
+def _assert_chunks_equal(to, jo, h, w):
+    """Sparse chunk tuples (bitmap, counts, meta, payload, recon planes)
+    of the port and of vcp_tpu, and their host unpacking; returns the
+    port's per-frame dicts."""
     mcount, bcount = (int(c) for c in np.asarray(jo[1]))
     _eq(to[0], jo[0])
     _eq(to[1], jo[1])
@@ -106,8 +121,58 @@ def test_pchunk_sparse_from_reference_state(frames, deblock):
                                 to[3][:bcount].numpy(), mcount, bcount,
                                 h // 16, w // 16)
     for a, b in zip(dt, dj):
+        assert set(a) == set(b)
         for k in b:
             np.testing.assert_array_equal(a[k], b[k])
+    return dt
+
+
+@pytest.mark.parametrize("qp,deblock,subpel,t8", [
+    (24, True, 1, True), (32, True, 1, True), (28, False, 1, True),
+    (26, True, 1, False), (26, True, 0, True)])
+def test_pchunk_sparse_subpel_t8(qp, deblock, subpel, t8):
+    """The half-pel / adaptive-8x8 P chunk (and each option alone): packed
+    rows with their t8 flag words, unpacked dicts and recon planes."""
+    fr = moving_frames(4, seed=qp)
+    h, w = fr[0][0].shape
+    qpc = jtf.chroma_qp(qp)
+    j_i = jg.encode_iframe_sparse(*fr[0], qp - 3, jtf.chroma_qp(qp - 3),
+                                  deblock)
+    recon = tuple(np.asarray(p) for p in j_i[3:])
+    buf = jg.pack_frames(fr[1:4])
+    lam = 5
+    jo = jg.encode_pchunk_sparse(buf, *recon, qp, qpc, 8, lam, h, w,
+                                 deblock, subpel, t8)
+    to = tg.encode_pchunk_sparse(_t(buf), *map(_t, recon), qp, qpc, 8, lam,
+                                 h, w, deblock, subpel, t8)
+    dicts = _assert_chunks_equal(to, jo, h, w)
+    if subpel:
+        assert any(((d["mv"] & 3) == 2).any() for d in dicts), \
+            "no half-pel vector"
+    if t8:
+        n_t8 = sum(int(d["t8"].sum()) for d in dicts if "t8" in d)
+        n_act = sum(int(d["active"].sum()) for d in dicts)
+        assert 0 < n_t8 < n_act, (n_t8, n_act)
+
+
+@pytest.mark.parametrize("qp", [20, 30, 40])
+def test_residual_recon_t8(qp):
+    """_residual_recon with both transforms: levels, recon, nz grid and
+    the per-MB transform choice."""
+    rng = np.random.default_rng(qp)
+    fr = moving_frames(2, seed=qp)
+    cur = [p.astype(np.int32) for p in fr[1]]
+    pred = [np.clip(p.astype(np.int32) + rng.integers(-6, 7, p.shape), 0,
+                    255).astype(np.int32) for p in fr[0]]
+    qpc = jtf.chroma_qp(qp)
+    want = jg._residual_recon(*cur, *pred, qp, qpc, t8=True)
+    got = tg._residual_recon(*map(_t, cur), *map(_t, pred), qp, qpc,
+                             t8=True)
+    assert len(got) == len(want) == 10
+    for a, b in zip(got, want):
+        _eq(a, b)
+    share = float(got[9].numpy().mean())
+    assert 0 < share < 1, share
 
 
 def test_decimate_skip_and_flag_words():

@@ -5,8 +5,13 @@ single-device GOP coder with dense uploads of the padded source planes.
 Per GOP the IDR and every P chunk (8/4/2/1 frames) are dispatched to the
 device first, chained on the device-resident recon; then each chunk's
 compacted entropy rows are fetched and written by the host CABAC slice
-writers in order. Settings outside this path raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+writers in order. Two settings run: the speed shape (effort <= 4:
+full-pel ME, 4x4 transform, row-pattern I16 IDR) and the half-pel
+quality shape without B pictures (efforts 5 and 6 with ``-bf 0``:
+pyramid or exhaustive full-pel search refined to half-pel, adaptive 8x8
+transform, RD intra IDR with I16 and i8 MBs, High profile).
+Settings outside these raise ``NotImplementedError`` naming the ROADMAP
+item that will port them.
 """
 
 from __future__ import annotations
@@ -35,6 +40,13 @@ class EncodeAbort(RuntimeError):
 def search_range_for_effort(effort: int) -> int:
     """ffmpeg preset ladder (p1..p7 / ultrafast..placebo) → ME window."""
     return (4, 4, 6, 8, 8, 12, 16, 16, 24, 24)[max(0, min(9, effort))]
+
+
+def subpel_for_effort(effort: int) -> int:
+    """Sub-pel ME level per the ffmpeg subme ladder: 0 = full-pel
+    (p1-p4/fast), 1 = half-pel (p5-p6/medium), 2 = quarter-pel
+    (p7+/slow)."""
+    return 0 if effort < 5 else (1 if effort < 7 else 2)
 
 
 def lam_for_qp(qp: int) -> int:
@@ -101,21 +113,34 @@ class EncoderConfig:
 
 
 def check_supported(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for settings outside the ported path."""
+    """Raise NotImplementedError for settings outside the two ported
+    shapes: effort <= 4 without 8x8 transform, partitions or RD intra,
+    and efforts 5-6 (half-pel ME) with the 8x8 transform and RD intra;
+    both CABAC and without B pictures. (Partitions do not reach the
+    chunked GOP path, so at efforts 5-6 the flag changes nothing.)"""
     todo = []
-    if cfg.effort >= 5:
-        todo.append(f"effort {cfg.effort} (sub-pel ME, hier-ME; ROADMAP "
-                    "A1 quality shape)")
-    if cfg.bframes > 0:
-        todo.append("B pictures (ROADMAP A1 quality shape, B-GOP)")
-    if cfg.transform8:
-        todo.append("8x8 transform (ROADMAP A1 quality shape, t8)")
-    if cfg.parts:
-        todo.append("partitions (ROADMAP A1 quality shape, parts)")
-    if cfg.use_rd_intra():
-        todo.append("RD intra (ROADMAP A1 quality shape, RD intra)")
     if not cfg.cabac:
         todo.append("CAVLC / VCP_CABAC=0 (ROADMAP A4)")
+    if cfg.bframes > 0:
+        todo.append("B pictures (ROADMAP A1a: B-GOP, partitions, intra "
+                    "overlay)")
+    if cfg.effort >= 7:
+        todo.append(f"effort {cfg.effort} (quarter-pel ME; ROADMAP A1b)")
+    elif cfg.effort >= 5:
+        if not cfg.transform8:
+            todo.append(f"effort {cfg.effort} without the 8x8 transform / "
+                        "VCP_T8=0 (needs the I16-only RD intra frame; "
+                        "ROADMAP A1c)")
+        if not cfg.use_rd_intra():
+            todo.append(f"effort {cfg.effort} without RD intra (ROADMAP "
+                        "A1c)")
+    else:
+        if cfg.transform8:
+            todo.append("8x8 transform below effort 5 (ROADMAP A1c)")
+        if cfg.parts:
+            todo.append("partitions (ROADMAP A1a)")
+        if cfg.use_rd_intra():
+            todo.append("RD intra below effort 5 (ROADMAP A1c)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -137,8 +162,12 @@ class H264Encoder:
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.sp = headers.SeqParams(width=cfg.width, height=cfg.height)
-        self.pp = headers.PicParams(init_qp=26, cabac=cfg.cabac)
+        # the adaptive 8x8 transform needs the High profile
+        self.sp = headers.SeqParams(
+            width=cfg.width, height=cfg.height,
+            **({"profile_idc": 100} if cfg.transform8 else {}))
+        self.pp = headers.PicParams(init_qp=26, cabac=cfg.cabac,
+                                    transform_8x8=cfg.transform8)
         self.idr_count = 0
         self._frame_num = 0
         self._recon = None          # (y, u, v) uint8 planes on the device
@@ -184,11 +213,19 @@ class H264Encoder:
         # Phase 1: dispatch the IDR and every P chunk; the chunks chain on
         # the IDR's device-resident recon.
         t0 = time.perf_counter()
-        yp, up, vp = self._pad(*frames[0])
-        imeta, icount, iblocks, ry, ru, rv = gop_ops.encode_iframe_sparse(
-            self._upload(yp), self._upload(up), self._upload(vp),
-            qp_i, qpc_i, cfg.deblock)
-        recon = (ry, ru, rv)
+        rd_intra = cfg.use_rd_intra()
+        planes = [self._upload(p) for p in self._pad(*frames[0])]
+        if rd_intra:
+            # quality shape: dense RD-mode intra (per-MB I16 / i8 choice);
+            # one IDR per GOP, so the dense fetch is amortized
+            from . import intra_rd
+            iout = intra_rd.encode_iframe_rd8(*planes, qp_i, qpc_i,
+                                              cfg.deblock)
+            recon = (iout["recon_y"], iout["recon_u"], iout["recon_v"])
+        else:
+            imeta, icount, iblocks, *recon = gop_ops.encode_iframe_sparse(
+                *planes, qp_i, qpc_i, cfg.deblock)
+            recon = tuple(recon)
         self.idr_count += 1
         self._frame_num = 1
         t1 = time.perf_counter()
@@ -203,7 +240,8 @@ class H264Encoder:
             bitmap, counts, meta, payload, ry, ru, rv = \
                 gop_ops.encode_pchunk_sparse(
                     self._upload(buf), *recon, qp, qpc, sr, lam, h16, w16,
-                    cfg.deblock)
+                    cfg.deblock, subpel_for_effort(cfg.effort),
+                    cfg.transform8)
             recon = tuple(p.to(torch.uint8) for p in (ry, ru, rv))
             pending.append((bitmap, counts, meta, payload))
             i += chunk
@@ -213,11 +251,19 @@ class H264Encoder:
 
         # Phase 2: fetch + host entropy, IDR first.
         out: list[tuple[bytes, bool]] = []
-        icnt = int(icount[0])
-        imeta_h, iblocks_h = imeta.cpu().numpy(), iblocks[:icnt].cpu().numpy()
-        t2 = time.perf_counter()
+        if rd_intra:
+            idata = {k: iout[k].cpu().numpy() for k in (
+                "luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
+                "modes", "cmodes", "i8", "i8_modes", "i8_luma")}
+            t2 = time.perf_counter()
+        else:
+            icnt = int(icount[0])
+            imeta_h = imeta.cpu().numpy()
+            iblocks_h = iblocks[:icnt].cpu().numpy()
+            t2 = time.perf_counter()
+            idata = gop_ops.unpack_sparse_iframe(imeta_h, iblocks_h, icnt,
+                                                 n_mbx)
         self.stage_s["fetch"] += t2 - t1
-        idata = gop_ops.unpack_sparse_iframe(imeta_h, iblocks_h, icnt, n_mbx)
         out.append((entropy.write_islice(
             self.sp, self.pp, frame_num=0,
             idr_pic_id=(self.idr_count - 1) % 65536, qp=qp_i, data=idata,

@@ -1,21 +1,27 @@
 """GOP-chunk device encoding on torch tensors (the P-frame hot path).
 
 Port of the main-path subset of ``vcp_tpu/codec/h264/gop_ops.py``: the
-full-pel P step (``motion_search`` kernel with fused prediction, chroma
-MC, 4x4 residual transform/quant/recon with dead-MB decimation,
-uniform-QP deblock), the P-chunk loop (``lax.scan`` becomes a Python loop
-over device tensors, each frame predicting from the previous recon), and
-the sparse packing of each chunk's entropy inputs into compacted int16
-rows, plus the sparse IDR packing. The host-side unpackers turn the
-fetched rows back into the dense dicts the slice writers take.
+P step (full-pel: ``motion_search`` kernel with fused prediction;
+half-pel: the pyramid search or the search-only kernel, then half-pel
+planes and the fused refine + MC; chroma MC, 4x4 residual
+transform/quant/recon with dead-MB decimation and, with ``t8``, the
+adaptive 8x8 transform chosen per MB by RD cost; uniform-QP deblock),
+the P-chunk loop (``lax.scan`` becomes a Python loop over device tensors,
+each frame predicting from the previous recon), and the sparse packing of
+each chunk's entropy inputs into compacted int16 rows, plus the sparse
+IDR packing. The host-side unpackers turn the fetched rows back into the
+dense dicts the slice writers take.
 
 Packed per-MB int16 words:
   [mv 2 | cb_dc 4 | cr_dc 4 | flags 1 | pad 1 | luma 16x16 | cb_ac 4x16
    | cr_ac 4x16]
-(flags bit 0 = transform_size_8x8, always 0 on this path).
+(flags bit 0 = transform_size_8x8: the luma words then hold four
+64-coefficient 8x8 scans instead of sixteen 4x4 scans).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,7 +29,9 @@ import torch
 from ...device import constant
 from ...ops import motion as mops
 from ...ops import transform as tf
+from ...ops import transform8 as t8ops
 from ...ops.motion_cuda import motion_search
+from . import rdcost
 from .frame_ops import _blk_order, _zigzag
 
 MB_WORDS_MV = 2
@@ -41,6 +49,20 @@ IMB_META = 24       # I-frame meta per MB: luma DC 16 + cbDC 4 + crDC 4
 # the threshold cost more bits than the distortion they remove.
 _DECIMATE_TAB = np.array([3, 2, 2, 1, 1, 1, 0, 0], np.int32)
 DECIMATE_THRESHOLD = 6     # whole-MB threshold (x264's p-skip decimation)
+
+
+def use_hier_me(sr: int) -> bool:
+    """Two-level pyramid search (``motion.hier_search``) for the sub-pel P
+    step: on for wide windows (R >= 12), where the exhaustive sweep's
+    (2R+1)^2 offsets dominate. VCP_HIER_ME=0 opts out (the exhaustive
+    search-only kernel runs instead), =1 forces it on at every range; read
+    at every call."""
+    val = os.environ.get("VCP_HIER_ME", "")
+    if val == "0":
+        return False
+    if val == "1":
+        return True
+    return sr >= 12
 
 
 def _rep2(a: torch.Tensor, f: int) -> torch.Tensor:
@@ -67,13 +89,18 @@ def decimate_keep_mask(z_zz: torch.Tensor, extra: int = 0) -> torch.Tensor:
 
 
 def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
-                    qp: int, qpc: int):
+                    qp: int, qpc: int, t8: bool = False):
     """Inter residual: transform/quantize/reconstruct against prediction
     planes. Returns (z_luma (nMBy, nMBx, 256), cb_dc, cb_ac, cr_dc,
-    cr_ac, recon_y, recon_u, recon_v, nz4 (H/4, W/4) bool)."""
+    cr_ac, recon_y, recon_u, recon_v, nz4 (H/4, W/4) bool, t8 grid (nMBy,
+    nMBx) bool, all False when ``t8`` is off). ``t8`` enables the
+    High-profile adaptive 8x8 luma transform: both transforms are
+    computed and each MB picks by rate-distortion cost (SSD + lambda2 *
+    bits estimate, see ``rdcost``)."""
     h, w = cur_y.shape
     n_mby, n_mbx = h // 16, w // 16
-    z = tf.quant4(tf.fdct4(tf.to_blocks4(cur_y - pred_y)), qp, intra=False)
+    diff = cur_y - pred_y
+    z = tf.quant4(tf.fdct4(tf.to_blocks4(diff)), qp, intra=False)
     zb = z.reshape(n_mby, 4, n_mbx, 4, 4, 4).permute(0, 2, 1, 3, 4, 5)
     z_zz = _zigzag(_blk_order(zb))                    # (nMBy, nMBx, 16, 16)
 
@@ -85,6 +112,47 @@ def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
     recon_y = torch.clamp(
         pred_y + tf.from_blocks4(tf.idct4(tf.dequant4(z, qp))), 0, 255)
     z_luma = z_zz.reshape(n_mby, n_mbx, 256)
+    t8_grid = torch.zeros((n_mby, n_mbx), dtype=torch.bool,
+                          device=cur_y.device)
+
+    if t8:
+        z8 = t8ops.quant8(t8ops.fdct8(t8ops.to_blocks8(diff)), qp,
+                          intra=False)                # (H/8, W/8, 8, 8)
+        # per-MB scans (nMBy, nMBx, 4, 64), 8x8 blocks in raster order
+        scan_mb = t8ops.zigzag8(z8).reshape(n_mby, 2, n_mbx, 2, 64) \
+            .permute(0, 2, 1, 3, 4).reshape(n_mby, n_mbx, 4, 64)
+        # dead-MB decimation on the 8x8 path too (16-coefficient chunks
+        # of the scans keep the run structure the score models)
+        keep8 = decimate_keep_mask(scan_mb.reshape(n_mby, n_mbx, 16, 16))
+        scan_mb = scan_mb * keep8[..., None, None]
+        z8k = t8ops.unzigzag8(
+            scan_mb.reshape(n_mby, n_mbx, 2, 2, 64)
+            .permute(0, 2, 1, 3, 4).reshape(n_mby * 2, n_mbx * 2, 64))
+        recon8_y = torch.clamp(
+            pred_y + t8ops.from_blocks8(
+                t8ops.idct8(t8ops.dequant8(z8k, qp))), 0, 255)
+
+        # RD choice per MB: SSD + lambda2 * bits proxy, which charges
+        # each nonzero level plus a per-coded-block overhead (4x4 blocks
+        # carry more sig-map/cbf overhead)
+        lam2 = rdcost.lam2_for_qp(qp)
+
+        def mb_ssd(rec):
+            return rdcost.ssd(cur_y.reshape(n_mby, 16, n_mbx, 16),
+                              rec.reshape(n_mby, 16, n_mbx, 16), (1, 3))
+
+        def bits_proxy(levels, per_block_words: int, blk_over: float):
+            grp = levels.reshape(n_mby, n_mbx, -1, per_block_words)
+            nzblk = (grp != 0).any(dim=-1).sum(dim=-1).to(torch.float32)
+            return rdcost.level_bits(grp, (-1, -2)) + blk_over * nzblk
+
+        cost4 = mb_ssd(recon_y) + lam2 * bits_proxy(z_zz, 16, 3.0)
+        cost8 = mb_ssd(recon8_y) + lam2 * bits_proxy(scan_mb, 64, 6.0)
+        has8 = (scan_mb != 0).any(dim=-1).any(dim=-1)
+        t8_grid = (cost8 < cost4) & has8
+        recon_y = torch.where(_rep2(t8_grid, 16), recon8_y, recon_y)
+        z_luma = torch.where(t8_grid[..., None],
+                             scan_mb.reshape(n_mby, n_mbx, 256), z_luma)
 
     def chroma(cur, pred):
         hc, wc = cur.shape
@@ -104,37 +172,69 @@ def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
     cb_dc, cb_ac, recon_u = chroma(cur_u, pred_u)
     cr_dc, cr_ac, recon_v = chroma(cur_v, pred_v)
     nz4 = (z != 0).any(dim=-1).any(dim=-1)            # (H/4, W/4)
+    if t8:
+        # deblock residual presence per TRANSFORM block: the 8x8 flags
+        # expanded to the 4x4 grid for t8 MBs
+        nz8 = (z8k != 0).any(dim=-1).any(dim=-1)      # (H/8, W/8)
+        nz4 = torch.where(_rep2(t8_grid, 4), _rep2(nz8, 2), nz4)
     return (z_luma, cb_dc, cb_ac, cr_dc, cr_ac,
-            recon_y, recon_u, recon_v, nz4)
+            recon_y, recon_u, recon_v, nz4, t8_grid)
 
 
 def _pstep_core(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int,
-                qpc: int, sr: int, lam: int):
-    """Full-pel P step before deblocking. Returns (packed int16 (nMB *
-    MB_WORDS,), recon planes, nz4 grid, quarter-pel mv grid)."""
+                qpc: int, sr: int, lam: int, subpel: int = 1,
+                t8: bool = False):
+    """P step before deblocking. Returns (packed int16 (nMB * MB_WORDS,),
+    recon planes, nz4 grid, quarter-pel mv grid, t8 grid).
+
+    ``subpel`` 0 is full-pel ME (the search kernel also writes the
+    prediction); 1 takes full-pel vectors from the pyramid search (wide
+    windows, see ``use_hier_me``) or from the exhaustive search-only
+    kernel, and refines them to half-pel with the fused refine + MC over
+    the half-pel planes of the padded reference."""
     h, w = cur_y.shape
     n_mby, n_mbx = h // 16, w // 16
-    mv_full, pred_y = motion_search(cur_y.contiguous(), ref_y.contiguous(),
-                                   sr, lam, with_pred=True)
-    mv = mv_full * 4
+    if subpel == 1:
+        if use_hier_me(sr):
+            mv_full = mops.hier_search(cur_y, ref_y, sr, lam)
+        else:
+            mv_full = motion_search(cur_y.contiguous(), ref_y.contiguous(),
+                                    sr, lam, with_pred=False)
+        pad = sr + 6
+        planes = torch.stack(mops.half_planes(
+            mops.pad_edge(ref_y, pad, pad, pad, pad)))
+        mv, pred_y = mops.refine_half_mc(cur_y, planes, mv_full, lam,
+                                         pad - 3)
+    elif subpel == 0:
+        mv_full, pred_y = motion_search(cur_y.contiguous(),
+                                        ref_y.contiguous(), sr, lam,
+                                        with_pred=True)
+        mv = mv_full * 4
+    else:
+        raise NotImplementedError(
+            f"subpel {subpel}: quarter-pel ME is not ported yet (ROADMAP "
+            "A1b)")
     pred_u = mops.mc_chroma_q(ref_u, mv, sr // 2 + 2)
     pred_v = mops.mc_chroma_q(ref_v, mv, sr // 2 + 2)
     (z_luma, cb_dc, cb_ac, cr_dc, cr_ac,
-     recon_y, recon_u, recon_v, nz4) = _residual_recon(
-        cur_y, cur_u, cur_v, pred_y, pred_u, pred_v, qp, qpc)
-    zero = torch.zeros((n_mby, n_mbx, 2), dtype=torch.int32,
-                       device=cur_y.device)            # t8 flag + pad
-    packed = torch.cat([mv.to(torch.int32), cb_dc, cr_dc, zero,
+     recon_y, recon_u, recon_v, nz4, t8g) = _residual_recon(
+        cur_y, cur_u, cur_v, pred_y, pred_u, pred_v, qp, qpc, t8=t8)
+    zero = torch.zeros((n_mby, n_mbx, 1), dtype=torch.int32,
+                       device=cur_y.device)
+    packed = torch.cat([mv.to(torch.int32), cb_dc, cr_dc,
+                        t8g.to(torch.int32)[..., None], zero,
                         z_luma, cb_ac, cr_ac], dim=-1) \
         .to(torch.int16).reshape(-1)
-    return packed, recon_y, recon_u, recon_v, nz4, mv
+    return packed, recon_y, recon_u, recon_v, nz4, mv, t8g
 
 
 def _pstep(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int, qpc: int,
-           sr: int, lam: int, deblock: bool = False):
+           sr: int, lam: int, subpel: int = 1, deblock: bool = False,
+           t8: bool = False):
     """One P frame; returns (packed, recon planes). MVs in quarter-pel."""
-    packed, recon_y, recon_u, recon_v, nz4, mv = _pstep_core(
-        cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp, qpc, sr, lam)
+    packed, recon_y, recon_u, recon_v, nz4, mv, t8g = _pstep_core(
+        cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp, qpc, sr, lam,
+        subpel=subpel, t8=t8)
     if deblock:
         from ...ops import deblock as dbf
         h, w = cur_y.shape
@@ -144,12 +244,13 @@ def _pstep(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int, qpc: int,
         intra = torch.zeros((h // 16, w // 16), dtype=torch.bool, device=dev)
         recon_y, recon_u, recon_v = dbf.deblock_frame(
             recon_y, recon_u, recon_v, qp_mb, intra, nz4, mv,
-            no_strong=True, qp_scalar=qp)
+            no_strong=True, qp_scalar=qp, t8=t8g if t8 else None)
     return packed, recon_y, recon_u, recon_v
 
 
 def encode_pchunk(ys, us, vs, ref_y, ref_u, ref_v, qp: int, qpc: int,
-                  sr: int, lam: int, deblock: bool = False):
+                  sr: int, lam: int, deblock: bool = False,
+                  subpel: int = 1, t8: bool = False):
     """Encode N consecutive P frames, each predicting from the previous
     recon. ys (N, H, W), refs (H, W), any integer dtype. Returns (packed
     (N, nMB*MB_WORDS) int16, recon_y/u/v int32 of the last frame)."""
@@ -158,7 +259,8 @@ def encode_pchunk(ys, us, vs, ref_y, ref_u, ref_v, qp: int, qpc: int,
     for k in range(ys.shape[0]):
         cy, cu, cv = (a[k].to(torch.int32) for a in (ys, us, vs))
         packed, ry, ru, rv = _pstep(cy, cu, cv, ry, ru, rv, qp, qpc, sr,
-                                    lam, deblock=deblock)
+                                    lam, subpel=subpel, deblock=deblock,
+                                    t8=t8)
         out.append(packed)
     return torch.stack(out), ry, ru, rv
 
@@ -252,7 +354,8 @@ def pack_frames(batch: list) -> np.ndarray:
 
 def encode_pchunk_sparse(buf, ref_y, ref_u, ref_v, qp: int, qpc: int,
                          sr: int, lam: int, h: int, w: int,
-                         deblock: bool = False):
+                         deblock: bool = False, subpel: int = 1,
+                         t8: bool = False):
     """P chunk from ONE packed uint8 planar buffer (N, h*w*3//2) on the
     device; returns (bitmap, counts, meta, payload, recon_y/u/v)."""
     n = buf.shape[0]
@@ -261,7 +364,8 @@ def encode_pchunk_sparse(buf, ref_y, ref_u, ref_v, qp: int, qpc: int,
     us = buf[:, hw:hw + cw].reshape(n, h // 2, w // 2)
     vs = buf[:, hw + cw:].reshape(n, h // 2, w // 2)
     packed, ry, ru, rv = encode_pchunk(ys, us, vs, ref_y, ref_u, ref_v,
-                                       qp, qpc, sr, lam, deblock)
+                                       qp, qpc, sr, lam, deblock, subpel,
+                                       t8)
     bitmap, counts, meta, payload = _sparsify_packed(
         packed, n, (h // 16) * (w // 16), w // 16)
     return bitmap, counts, meta, payload, ry, ru, rv
@@ -356,7 +460,7 @@ def unpack_sparse_chunk(bitmap_h: np.ndarray, meta_h: np.ndarray,
     for i in range(f):
         m = meta_d[i]
         blk = pay_d[i]
-        out.append({
+        d = {
             "active": active[i].reshape(n_mby, n_mbx),
             "mv": m[:, :2].reshape(n_mby, n_mbx, 2).astype(np.int32),
             "cb_dc": m[:, 2:6].reshape(n_mby, n_mbx, 4),
@@ -364,5 +468,9 @@ def unpack_sparse_chunk(bitmap_h: np.ndarray, meta_h: np.ndarray,
             "luma": blk[:, :256].reshape(n_mby, n_mbx, 16, 16),
             "cb_ac": blk[:, 256:320].reshape(n_mby, n_mbx, 4, 16),
             "cr_ac": blk[:, 320:384].reshape(n_mby, n_mbx, 4, 16),
-        })
+        }
+        t8 = m[:, 10].reshape(n_mby, n_mbx).astype(bool)
+        if t8.any():
+            d["t8"] = t8
+        out.append(d)
     return out

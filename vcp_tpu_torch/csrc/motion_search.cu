@@ -1,12 +1,16 @@
-// Full-pel exhaustive SAD motion search with fused full-pel prediction.
+// Full-pel exhaustive SAD motion search, with or without the fused
+// full-pel prediction.
 //
-// Replaces the TPU kernel vcp_tpu/ops/motion_pallas.py (_kernel_pred /
-// _kernel -> _search_impl, full_search_pallas): per 16x16 macroblock, the
-// cost SAD + lam * (|dx| + |dy|) of every full-pel offset in +-sr against
-// an edge-padded reference; the first minimum in dy-major, dx-ascending
-// order wins (the tie rule of vcp_tpu/ops/motion.py full_search). With
-// ``pred`` non-null the winning 16x16 block is written as the prediction
-// (equal to motion.mc_luma(ref, mv, sr)).
+// Replaces the two TPU kernels of vcp_tpu/ops/motion_pallas.py
+// (full_search_pallas -> _search_impl): _kernel_pred, here
+// motion_search_kernel<true>, and the search-only _kernel, here
+// motion_search_kernel<false>. Per 16x16 macroblock, the cost SAD + lam *
+// (|dx| + |dy|) of every full-pel offset in +-sr against an edge-padded
+// reference; the first minimum in dy-major, dx-ascending order wins (the
+// tie rule of vcp_tpu/ops/motion.py full_search). With kPred the winning
+// 16x16 block is written as the prediction (equal to motion.mc_luma(ref,
+// mv, sr)); the search-only form, whose caller interpolates a sub-pel
+// prediction itself, writes the vectors alone.
 //
 // Design: one thread block per MB. The (16+2sr)^2 reference window is
 // loaded once into shared memory with the reference coordinates clamped
@@ -28,6 +32,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kPred>
 __global__ void motion_search_kernel(const int32_t* __restrict__ cur,
                                      const int32_t* __restrict__ ref,
                                      int h, int w, int sr, int lam,
@@ -104,7 +109,7 @@ __global__ void motion_search_kernel(const int32_t* __restrict__ cur,
         mv[2 * m + 0] = bdy - sr;
         mv[2 * m + 1] = bdx - sr;
     }
-    if (pred != nullptr) {
+    if (kPred) {
         for (int i = tid; i < 256; i += blockDim.x) {
             const int r = i >> 4, c = i & 15;
             pred[(size_t)(mby * 16 + r) * w + mbx * 16 + c] =
@@ -122,16 +127,22 @@ const char* vcp_error_string(int err) {
 }
 
 // cur, ref: (h, w) int32 device planes (h, w multiples of 16); mv out:
-// (h/16, w/16, 2) int32 [dy, dx]; pred out (h, w) int32 or null.
-// Returns cudaGetLastError() after the launch.
+// (h/16, w/16, 2) int32 [dy, dx]; pred out (h, w) int32, or null for the
+// search-only kernel. Returns cudaGetLastError() after the launch.
 int vcp_motion_search(const int32_t* cur, const int32_t* ref, int h, int w,
                       int sr, int lam, int32_t* mv, int32_t* pred,
                       void* stream) {
     const int wn = 16 + 2 * sr;
     const size_t shmem = (size_t)(wn * wn + 256) * sizeof(int32_t);
     dim3 grid(w / 16, h / 16);
-    motion_search_kernel<<<grid, kThreads, shmem, (cudaStream_t)stream>>>(
-        cur, ref, h, w, sr, lam, mv, pred);
+    if (pred != nullptr)
+        motion_search_kernel<true>
+            <<<grid, kThreads, shmem, (cudaStream_t)stream>>>(
+                cur, ref, h, w, sr, lam, mv, pred);
+    else
+        motion_search_kernel<false>
+            <<<grid, kThreads, shmem, (cudaStream_t)stream>>>(
+                cur, ref, h, w, sr, lam, mv, nullptr);
     return (int)cudaGetLastError();
 }
 

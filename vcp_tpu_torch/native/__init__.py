@@ -27,4 +27,13 @@ def get_lib() -> ctypes.CDLL:
     lib.vcp_write_pslice_cabac.argtypes = [
         i32, i32, i32, i32, i32, i32, i32, i32, i32,
         u8p, i32p, i32p, i32p, i32p, i32p, i32p, u8p, i64]
+    lib.vcp_write_pslice_cabac_t8.restype = i64
+    lib.vcp_write_pslice_cabac_t8.argtypes = [
+        i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        u8p, u8p, i32p, i32p, i32p, i32p, i32p, i32p, u8p, i64]
+    lib.vcp_write_islice_cabac_i8.restype = i64
+    lib.vcp_write_islice_cabac_i8.argtypes = [
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, u8p, i32p,
+        u8p, i64]
     return lib

@@ -1,9 +1,11 @@
 // CABAC slice entropy engine (host).
 //
-// Copy of the engine and the I16 / P_L0_16x16 slice writers of
-// vcp_tpu/native/cabac.cpp (spec 9.3): I16x16-only I slices and P slices
-// with P_L0_16x16 + P_Skip, bit-identical to vcp_tpu's writers. Host code,
-// not a device kernel.
+// Copy of the engine and of four slice writers of
+// vcp_tpu/native/cabac.cpp (spec 9.3): I slices of I16x16 MBs, I slices
+// that mix I16x16 with I_NxN / transform-8x8 MBs, and P slices of
+// P_L0_16x16 + P_Skip MBs without and with the High-profile
+// transform_size_8x8 flag, bit-identical to vcp_tpu's writers. Host
+// code, not a device kernel.
 //
 // C ABI, loaded via ctypes.
 
@@ -875,6 +877,204 @@ int64_t vcp_write_pslice_cabac(
         n_mby, n_mbx, qp, init_qp, frame_num_bits, frame_num, deblock_idc,
         poc_bits, poc_lsb, active, mv_xy, luma, cb_dc, cb_ac, cr_dc, cr_ac,
         out, out_cap, nullptr, 0);
+}
+
+// High-profile variant: ``t8`` (nullable) flags transform-8x8 MBs and
+// transform_8x8_mode_flag is ON in the PPS (the flag is coded for every
+// MB with luma residual).
+int64_t vcp_write_pslice_cabac_t8(
+    int n_mby, int n_mbx, int qp, int init_qp, int frame_num_bits,
+    int frame_num, int deblock_idc, int poc_bits, int poc_lsb,
+    const uint8_t* active, const uint8_t* t8,
+    const int32_t* mv_xy, const int32_t* luma,
+    const int32_t* cb_dc, const int32_t* cb_ac,
+    const int32_t* cr_dc, const int32_t* cr_ac,
+    uint8_t* out, int64_t out_cap) {
+    return write_pslice_cabac_impl(
+        n_mby, n_mbx, qp, init_qp, frame_num_bits, frame_num, deblock_idc,
+        poc_bits, poc_lsb, active, mv_xy, luma, cb_dc, cb_ac, cr_dc, cr_ac,
+        out, out_cap, t8, 1);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// I_NxN / i8x8 macroblock and the mixed I16 / i8 IDR slice.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// One I_NxN MB with transform_size_8x8 (vcp_tpu's encode_mb_i8). The
+// caller provides the 4x4-granular I_NxN mode grid i4g (-1 = not I_NxN).
+// modes4 (4,), i8_luma (4, 64) scans, cdc (2, 4), cac (2, 4*16).
+void encode_mb_i8(CabacEnc& e, H264Ctxs& cx, MbState& st, int mbx,
+                  int mby, const int32_t* modes4, const int32_t* i8_luma,
+                  const int32_t* cdc[2], const int32_t* cac[2],
+                  int8_t* i4g, int chroma_mode, bool in_pslice) {
+    int n_mbx = st.n_mbx;
+    int w4 = 4 * n_mbx;
+    if (in_pslice) e.encode(*cx.mbt_p[0], 1);     // intra prefix
+    e.encode(*cx.mbt_i[st.mbt_i_ctx(mbx, mby)], 0);   // I_NxN
+    st.intra[st.mb(mbx, mby)] = 1;
+    st.i_nxn[st.mb(mbx, mby)] = 1;
+    e.encode(*cx.t8flag[st.t8_ctx(mbx, mby)], 1);
+    st.t8[st.mb(mbx, mby)] = 1;
+    for (int b8 = 0; b8 < 4; b8++) {
+        int by = 4 * mby + 2 * (b8 / 2);
+        int bx = 4 * mbx + 2 * (b8 % 2);
+        int pred;
+        if (bx == 0 || by == 0) {
+            pred = 2;
+        } else {
+            int a = i4g[(size_t)by * w4 + bx - 1];
+            int b = i4g[(size_t)(by - 1) * w4 + bx];
+            int pa = a >= 0 ? a : 2, pb = b >= 0 ? b : 2;
+            pred = pa < pb ? pa : pb;
+        }
+        int mode = modes4[b8];
+        if (mode == pred) {
+            e.encode(cx.g[68], 1);
+        } else {
+            e.encode(cx.g[68], 0);
+            int rem = mode < pred ? mode : mode - 1;
+            e.encode(cx.g[69], rem & 1);
+            e.encode(cx.g[69], (rem >> 1) & 1);
+            e.encode(cx.g[69], (rem >> 2) & 1);
+        }
+        for (int dy = 0; dy < 2; dy++)
+            for (int dx = 0; dx < 2; dx++)
+                i4g[(size_t)(by + dy) * w4 + bx + dx] = (int8_t)mode;
+    }
+    int cm_ctx = st.chroma_mode_ctx(mbx, mby);
+    if (chroma_mode == 0) {
+        e.encode(*cx.chroma_mode[cm_ctx], 0);
+    } else {
+        e.encode(*cx.chroma_mode[cm_ctx], 1);
+        for (int b = 1; b < 3; b++) {
+            if (chroma_mode == b) { e.encode(*cx.chroma_mode[3], 0); break; }
+            e.encode(*cx.chroma_mode[3], 1);
+        }
+    }
+    st.chroma_mode[st.mb(mbx, mby)] = chroma_mode;
+    int cbp_l = 0;
+    for (int b8 = 0; b8 < 4; b8++)
+        for (int k = 0; k < 64; k++)
+            if (i8_luma[b8 * 64 + k]) { cbp_l |= 1 << b8; break; }
+    bool any_cac = false, any_cdc = false;
+    for (int c = 0; c < 2; c++) {
+        for (int k = 0; k < 4; k++) if (cdc[c][k]) any_cdc = true;
+        for (int blk = 0; blk < 4; blk++)
+            for (int k = 1; k < 16; k++)
+                if (cac[c][blk * 16 + k]) any_cac = true;
+    }
+    int cbp_c = any_cac ? 2 : (any_cdc ? 1 : 0);
+    for (int b8 = 0; b8 < 4; b8++) {
+        int bit = (cbp_l >> b8) & 1;
+        e.encode(*cx.cbp_l[st.cbp_luma_ctx(mbx, mby, b8)], bit);
+        st.set_cbp_luma8(mbx, mby, b8, bit);
+    }
+    e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 0)], cbp_c > 0 ? 1 : 0);
+    if (cbp_c > 0)
+        e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 1)],
+                 cbp_c == 2 ? 1 : 0);
+    st.cbp_chroma[st.mb(mbx, mby)] = cbp_c;
+    if (cbp_l || cbp_c) e.encode(*cx.qp_delta[0], 0);
+    for (int b8 = 0; b8 < 4; b8++) {
+        int bit = (cbp_l >> b8) & 1;
+        if (bit) encode_block8(e, cx, i8_luma + b8 * 64);
+        int gy = 4 * mby + 2 * (b8 / 2), gx = 4 * mbx + 2 * (b8 % 2);
+        for (int dy = 0; dy < 2; dy++)
+            for (int dx = 0; dx < 2; dx++)
+                st.cbf_l4[(size_t)(gy + dy) * w4 + gx + dx] = (int8_t)bit;
+    }
+    if (cbp_c) {
+        for (int c = 0; c < 2; c++)
+            encode_block(e, cx, st, cdc[c], 4, CAT_CHROMA_DC, mbx, mby, 0,
+                         true, c);
+    } else {
+        for (int c = 0; c < 2; c++)
+            st.set_cbf(CAT_CHROMA_DC, mbx, mby, 0, 0, c);
+    }
+    for (int c = 0; c < 2; c++) {
+        for (int blk = 0; blk < 4; blk++) {
+            if (cbp_c == 2)
+                encode_block(e, cx, st, cac[c] + blk * 16 + 1, 15,
+                             CAT_CHROMA_AC, mbx, mby, blk, true, c);
+            else
+                st.set_cbf(CAT_CHROMA_AC, mbx, mby, blk, 0, c);
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// CABAC IDR slice with mixed I16 / I_NxN-i8 macroblocks (the output of
+// intra_rd.encode_iframe_rd8). For i8 MBs the ``luma_ac`` rows hold the
+// 4x64 scans (i8_luma layout).
+int64_t vcp_write_islice_cabac_i8(
+    int n_mby, int n_mbx, int qp, int init_qp, int frame_num_bits,
+    int frame_num, int idr_pic_id, int deblock_idc,
+    int poc_bits, int poc_lsb,
+    const int32_t* luma_dc, const int32_t* luma_ac,
+    const int32_t* cb_dc, const int32_t* cb_ac,
+    const int32_t* cr_dc, const int32_t* cr_ac,
+    const int32_t* modes, const int32_t* cmodes,
+    const uint8_t* i8, const int32_t* i8_modes,
+    uint8_t* out, int64_t out_cap) {
+    HdrWriter bw;
+    cabac_slice_header(bw, true, frame_num_bits, frame_num, idr_pic_id, qp,
+                       init_qp, deblock_idc, poc_bits, poc_lsb);
+    bw.align_ones();
+
+    CabacEnc e;
+    e.bits.reserve((size_t)n_mby * n_mbx * 256);
+    H264Ctxs cx(qp, false);
+    MbState st(n_mby, n_mbx);
+    std::vector<int8_t> i4g((size_t)16 * n_mby * n_mbx, -1);
+
+    for (int mby = 0; mby < n_mby; mby++) {
+        for (int mbx = 0; mbx < n_mbx; mbx++) {
+            size_t mb = (size_t)mby * n_mbx + mbx;
+            const int32_t* cdc[2] = {cb_dc + mb * 4, cr_dc + mb * 4};
+            const int32_t* cac[2] = {cb_ac + mb * 64, cr_ac + mb * 64};
+            if (i8[mb]) {
+                encode_mb_i8(e, cx, st, mbx, mby, i8_modes + mb * 4,
+                             luma_ac + mb * 256, cdc, cac, i4g.data(),
+                             cmodes[mb], false);
+            } else {
+                const int32_t* zdc = luma_dc + mb * 16;
+                const int32_t* zac = luma_ac + mb * 256;
+                bool cbp_luma15 = false;
+                for (int blk = 0; blk < 16 && !cbp_luma15; blk++)
+                    for (int k = 1; k < 16; k++)
+                        if (zac[blk * 16 + k]) { cbp_luma15 = true; break; }
+                bool any_cac = false, any_cdc = false;
+                for (int c = 0; c < 2; c++) {
+                    for (int k = 0; k < 4; k++)
+                        if (cdc[c][k]) any_cdc = true;
+                    for (int blk = 0; blk < 4; blk++)
+                        for (int k = 1; k < 16; k++)
+                            if (cac[c][blk * 16 + k]) any_cac = true;
+                }
+                int cbp_chroma = any_cac ? 2 : (any_cdc ? 1 : 0);
+                encode_mb_i16(e, cx, st, mbx, mby, modes[mb], cmodes[mb],
+                              cbp_luma15, cbp_chroma);
+                e.encode(*cx.qp_delta[0], 0);
+                mb_i16_residual(e, cx, st, mbx, mby, cbp_luma15,
+                                cbp_chroma, zdc, zac, cdc, cac);
+            }
+            st.avail[mb] = 1;
+            bool last = (mby == n_mby - 1) && (mbx == n_mbx - 1);
+            e.terminate(last ? 1 : 0);
+        }
+    }
+    std::vector<uint8_t>& buf = bw.buf;
+    e.flush_to(buf);
+    if ((int64_t)buf.size() > out_cap) return -1;
+    std::memcpy(out, buf.data(), buf.size());
+    return (int64_t)buf.size();
 }
 
 }  // extern "C"

@@ -136,18 +136,24 @@ def _rep2(a: torch.Tensor, f: int) -> torch.Tensor:
 
 
 def compute_bs_luma(intra_mb: torch.Tensor, nz_blk: torch.Tensor,
-                    mvq: torch.Tensor, vertical: bool) -> torch.Tensor:
+                    mvq: torch.Tensor, vertical: bool,
+                    t8: torch.Tensor | None = None) -> torch.Tensor:
     """Boundary strengths of all internal luma edges in one direction.
 
     intra_mb (nMBy, nMBx) bool; nz_blk (H/4, W/4) bool (block has
     residual); mvq (nMBy, nMBx, 2) quarter-pel. bS is 4 on intra MB
     edges, 3 on intra internal edges, 2 where either side has residual,
     1 where a MV component differs by >= 4 (one luma sample), else 0.
-    Returns (n_edges, H/4 or W/4) int32, edge j at offset 4*(j+1)."""
+    ``t8`` (nMBy, nMBx) bool flags transform_size_8x8 MBs, whose interior
+    4-offset edges are not filtered (spec 8.7: luma edges fall on the
+    transform-block grid). Returns (n_edges, H/4 or W/4) int32, edge j
+    at offset 4*(j+1)."""
     if not vertical:
         intra_mb = intra_mb.T
         nz_blk = nz_blk.T
         mvq = mvq.transpose(0, 1)
+        if t8 is not None:
+            t8 = t8.T
     bh, bw = nz_blk.shape
     intra_e4 = _rep2(intra_mb, 4)
     intra_e = intra_e4[:, :-1] | intra_e4[:, 1:]
@@ -159,6 +165,11 @@ def compute_bs_luma(intra_mb: torch.Tensor, nz_blk: torch.Tensor,
     bs = torch.where(
         intra_e, torch.where(is_mb_edge, 4, 3),
         torch.where(nz_e, 2, torch.where(mv_diff, 1, 0)))
+    if t8 is not None:
+        # edge j (at x = 4(j+1)) is interior to an 8x8 block when j+1 is
+        # odd, and then lies inside MB column (j+1) // 4
+        interior_odd = ((j + 1) % 2 == 1)[None, :]
+        bs = torch.where(_rep2(t8, 4)[:, :-1] & interior_odd, 0, bs)
     return bs.T.to(torch.int32).contiguous()
 
 
@@ -365,17 +376,19 @@ def deblock_fast_plain(y, u, v, bs_v, bs_h, scal):
 
 
 def deblock_frame(y, u, v, qp_mb, intra_mb, nz_y, mvq,
-                  no_strong: bool = False, qp_scalar: int | None = None):
+                  no_strong: bool = False, qp_scalar: int | None = None,
+                  t8: torch.Tensor | None = None):
     """Full in-loop filter of one reconstructed frame in spec order.
 
     y (H, W) int32; u, v (H/2, W/2); qp_mb (nMBy, nMBx) int32; intra_mb
-    bool; nz_y (H/4, W/4) bool; mvq (nMBy, nMBx, 2) quarter-pel.
+    bool; nz_y (H/4, W/4) bool; mvq (nMBy, nMBx, 2) quarter-pel; t8
+    (nMBy, nMBx) bool or None, see ``compute_bs_luma``.
     ``no_strong=True`` with ``qp_scalar`` (every qp_mb entry equal to it,
     no intra MB) takes the uniform-QP form; otherwise the general form,
     with the strong filter unless ``no_strong``."""
     from . import deblock_cuda
-    bs_v = compute_bs_luma(intra_mb, nz_y, mvq, vertical=True)
-    bs_h = compute_bs_luma(intra_mb, nz_y, mvq, vertical=False)
+    bs_v = compute_bs_luma(intra_mb, nz_y, mvq, vertical=True, t8=t8)
+    bs_h = compute_bs_luma(intra_mb, nz_y, mvq, vertical=False, t8=t8)
     if no_strong and qp_scalar is not None:
         return deblock_cuda.deblock_fast(y, u, v, bs_v, bs_h,
                                          deblock_scalars(qp_scalar))

@@ -8,7 +8,8 @@ strong filter optional). On CUDA tensors each wrapper launches its kernel
 (one grid per wavefront diagonal, all on the current stream) or raises;
 on CPU tensors it runs the plain PyTorch version in ``deblock``. Each
 wrapper's ``launches`` counts its calls that launched the kernel (one
-call = one frame = d_steps grid launches).
+call = one frame = d_steps grid launches); ``deblock_general`` counts
+its ``strong=False`` instantiation apart, in ``launches_no_strong``.
 """
 
 from __future__ import annotations
@@ -125,9 +126,13 @@ def deblock_general(y, u, v, vthr, hthr, cvthr, chthr, strong: bool = True):
         devmod.ptr(chthr), devmod.ptr(act), 1 if strong else 0,
         devmod.stream_ptr(y))
     devmod.check_launch(lib, err, "deblock_general")
-    deblock_general.launches += 1
+    if strong:
+        deblock_general.launches += 1
+    else:
+        deblock_general.launches_no_strong += 1
     return yo, uo, vo
 
 
 deblock_fast.launches = 0
-deblock_general.launches = 0
+deblock_general.launches = 0            # strong=True instantiation
+deblock_general.launches_no_strong = 0  # strong=False instantiation

@@ -3,9 +3,15 @@
 Port of the main-path subset of ``vcp_tpu/ops/motion.py``:
 ``full_search`` (full-pel exhaustive SAD search, the plain version of the
 ``motion_search`` kernel in ``motion_cuda``), ``mc_luma`` (full-pel luma
-MC, the plain version of the kernel's fused prediction) and
-``mc_chroma_q`` (1/8-pel bilinear chroma MC, spec 8.4.2.2.2, which runs
-as plain tensor code on every device). All int32-exact.
+MC, the plain version of the kernel's fused prediction), ``mc_chroma_q``
+(1/8-pel bilinear chroma MC, spec 8.4.2.2.2) and the half-pel tools of
+the quality presets: ``half_planes`` (spec 8.4.2.2.1 6-tap planes),
+``aligned_windows`` + ``refine_half_mc`` (fused half-pel refinement and
+MC from one window gather), their unfused pair ``refine_half`` +
+``mc_luma_h``, and ``hier_search`` (the two-level pyramid full-pel search
+that wide windows take instead of the exhaustive one). Everything but
+the exhaustive search runs as plain tensor code on every device. All
+int32-exact.
 """
 
 from __future__ import annotations
@@ -101,3 +107,274 @@ def mc_chroma_q(ref_c: torch.Tensor, mvq_luma: torch.Tensor, margin: int,
     num = ((8 - fx) * (8 - fy) * a + fx * (8 - fy) * b
            + (8 - fx) * fy * c + fx * fy * d + 32)
     return num >> 6
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical (two-level pyramid) full-pel search
+# ---------------------------------------------------------------------------
+
+REFINE_R = 4            # +-4 full-pel refine window around the coarse MV
+
+
+def _downsample4(a: torch.Tensor) -> torch.Tensor:
+    """4x4 box mean (H, W) -> (H/4, W/4), int32 (rounded)."""
+    h, w = a.shape
+    return (a.reshape(h // 4, 4, w // 4, 4).sum(dim=(1, 3),
+                                                dtype=torch.int32) + 8) >> 4
+
+
+def _coarse_search(cur4: torch.Tensor, ref4: torch.Tensor, sr4: int,
+                   lam: int):
+    """Exhaustive search with 4x4 blocks on the quarter-resolution plane
+    (one block per full-resolution MB). Returns two full-pel base
+    candidates per MB (x4 scale): the per-block argmin, and the argmin of
+    the 3x3-block context sum, which stays robust where the box
+    decimation aliases the small per-block SAD."""
+    h4, w4 = cur4.shape
+    nby, nbx = h4 // 4, w4 // 4
+    side = 2 * sr4 + 1
+    dev = cur4.device
+    ref_pad = pad_edge(ref4, sr4, sr4, sr4, sr4)
+    cur_b = cur4.reshape(nby, 4, nbx, 4)
+    bc_blk = torch.full((nby, nbx), 2 ** 30, dtype=torch.int32, device=dev)
+    bc_ctx = bc_blk.clone()
+    bo_blk = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    bo_ctx = bo_blk.clone()
+    for o in range(side * side):
+        dy, dx = o // side - sr4, o % side - sr4
+        shifted = ref_pad[dy + sr4:dy + sr4 + h4, dx + sr4:dx + sr4 + w4]
+        sad = (cur_b - shifted.reshape(nby, 4, nbx, 4)).abs() \
+            .sum(dim=(1, 3), dtype=torch.int32)
+        rate = abs(dx) + abs(dy)
+        cost_blk = sad * 16 + lam * 4 * rate
+        sp = pad_edge(sad, 1, 1, 1, 1)
+        ctx = sum(sp[dy2:dy2 + nby, dx2:dx2 + nbx]
+                  for dy2 in range(3) for dx2 in range(3))
+        cost_ctx = ctx * 16 + lam * 4 * 9 * rate
+        bb = cost_blk < bc_blk
+        bx_ = cost_ctx < bc_ctx
+        bc_blk = torch.where(bb, cost_blk, bc_blk)
+        bo_blk = torch.where(bb, o, bo_blk)
+        bc_ctx = torch.where(bx_, cost_ctx, bc_ctx)
+        bo_ctx = torch.where(bx_, o, bo_ctx)
+
+    def mv_of(o):
+        return torch.stack([o // side - sr4, o % side - sr4], dim=-1) * 4
+
+    return mv_of(bo_blk), mv_of(bo_ctx)
+
+
+def _refine_sweep(cur: torch.Tensor, win4: torch.Tensor,
+                  mv_base: torch.Tensor, lam: int, r: int):
+    """+-r full-pel sweep over per-MB windows (nMBy, 16+2r, nMBx, 16+2r)
+    centered at each MB's base vector. Returns (mv (nMBy, nMBx, 2),
+    best cost); the first offset with the lowest cost wins."""
+    h, w = cur.shape
+    nby, nbx = h // 16, w // 16
+    side = 2 * r + 1
+    dev = cur.device
+    cur_mb = cur.reshape(nby, 16, nbx, 16)
+    best_cost = torch.full((nby, nbx), 2 ** 30, dtype=torch.int32,
+                           device=dev)
+    best_o = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    for o in range(side * side):
+        dy, dx = o // side, o % side
+        sad = (cur_mb - win4[:, dy:dy + 16, :, dx:dx + 16]).abs() \
+            .sum(dim=(1, 3), dtype=torch.int32)
+        cost = sad + lam * ((mv_base[..., 1] + (dx - r)).abs()
+                            + (mv_base[..., 0] + (dy - r)).abs())
+        better = cost < best_cost
+        best_cost = torch.where(better, cost, best_cost)
+        best_o = torch.where(better, o, best_o)
+    mv = mv_base + torch.stack([best_o // side - r, best_o % side - r],
+                               dim=-1)
+    return mv, best_cost
+
+
+def hier_search(cur: torch.Tensor, ref: torch.Tensor, search_range: int,
+                lam: int = 4) -> torch.Tensor:
+    """Two-level pyramid full-pel search (the quality presets' wide
+    windows, R >= 12), same MV convention as ``full_search``. A coarse
+    exhaustive sweep on the 4x-downsampled planes yields two base vectors
+    per MB (per-block and context vote), clamped so base + refine stays
+    within +-search_range; a +-REFINE_R sweep refines around both and the
+    cheaper wins; the winner must beat SAD(0, 0) or the vector is 0."""
+    sr, r = search_range, REFINE_R
+    cur = cur.to(torch.int32)
+    ref = ref.to(torch.int32)
+    sr4 = max(1, -(-sr // 4))
+    lim = sr - r
+    bases = [b.clamp(-lim, lim) for b in _coarse_search(
+        _downsample4(cur), _downsample4(ref), sr4, lam)]
+    pad = sr + r
+    ref_pad = pad_edge(ref, pad, pad, pad, pad)[None]
+    (mv, cost), (mv2, cost2) = (
+        _refine_sweep(cur, aligned_windows(ref_pad, b, pad, e=r)[0], b,
+                      lam, r) for b in bases)
+    mv = torch.where((cost2 < cost)[..., None], mv2, mv)
+    cost = torch.minimum(cost, cost2)
+    h, w = cur.shape
+    zero_sad = (cur - ref).abs().reshape(h // 16, 16, w // 16, 16) \
+        .sum(dim=(1, 3), dtype=torch.int32)
+    return torch.where((zero_sad <= cost)[..., None], 0, mv)
+
+
+# ---------------------------------------------------------------------------
+# Sub-pel interpolation (spec 8.4.2.2.1: 6-tap half-pel planes)
+# ---------------------------------------------------------------------------
+
+def _tap6_x(a: torch.Tensor) -> torch.Tensor:
+    """6-tap (1,-5,20,20,-5,1) along x; the result at x is the half sample
+    between x and x+1. The input carries >= 3 columns of margin."""
+    return (a[:, 0:-5] - 5 * a[:, 1:-4] + 20 * a[:, 2:-3]
+            + 20 * a[:, 3:-2] - 5 * a[:, 4:-1] + a[:, 5:])
+
+
+def _tap6_y(a: torch.Tensor) -> torch.Tensor:
+    return (a[0:-5, :] - 5 * a[1:-4, :] + 20 * a[2:-3, :]
+            + 20 * a[3:-2, :] - 5 * a[4:-1, :] + a[5:, :])
+
+
+def half_planes(ref_pad: torch.Tensor):
+    """The integer plane and the three half-pel planes of an edge-padded
+    int32 plane: (G, b, h, j), each cropped by 3 pixels on every side
+    relative to ``ref_pad``. Sample (y, x) of every plane refers to
+    integer position (y, x) of G; b is the half sample to its right, h
+    below, j diagonal. The edge replication in ``ref_pad`` reproduces the
+    spec's coordinate clamping. Intermediates reach about +-2^19, so the
+    arithmetic stays int32 with arithmetic shifts."""
+    a = ref_pad.to(torch.int32)
+    b1 = _tap6_x(a)                           # (Hp, Wp-5)
+    h1 = _tap6_y(a)                           # (Hp-5, Wp)
+    j1 = _tap6_y(b1)                          # (Hp-5, Wp-5)
+    b = torch.clamp((b1 + 16) >> 5, 0, 255)
+    h = torch.clamp((h1 + 16) >> 5, 0, 255)
+    j = torch.clamp((j1 + 512) >> 10, 0, 255)
+    # b1[:, k] sits between ref_pad columns k+2 / k+3, so column x+1 of
+    # b1 is "right of x+3"
+    return a[3:-3, 3:-3], b[3:-3, 1:], h[1:, 3:-3], j[1:, 1:]
+
+
+def _bs2(bs):
+    """Block size spec -> (bh, bw): int = square, tuple = rectangular."""
+    return (bs, bs) if isinstance(bs, int) else bs
+
+
+def _half_candidates():
+    """The nine half-pel candidates around a full-pel vector in scan
+    order: (dy, dx) in quarter units, the plane that holds the sample
+    (0=G 1=b 2=h 3=j) and the integer offset (iy, ix) into it."""
+    for dy in (-2, 0, 2):
+        for dx in (-2, 0, 2):
+            yield (dy, dx, (2 if dy else 0) + (1 if dx else 0),
+                   -1 if dy < 0 else 0, -1 if dx < 0 else 0)
+
+
+def _mv_rate(cand: torch.Tensor, lam: int) -> torch.Tensor:
+    return lam * ((cand[..., 0].abs() + cand[..., 1].abs()) >> 1)
+
+
+def _px(a: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
+    """Per-block values -> per-pixel grid."""
+    return a.repeat_interleave(bh, 0).repeat_interleave(bw, 1)
+
+
+def refine_half(cur: torch.Tensor, planes, mv_full: torch.Tensor, lam: int,
+                margin: int, row0: int = 0, bs=16) -> torch.Tensor:
+    """Half-pel refinement with one full-frame gather per candidate.
+
+    Returns mvq in quarter-pel units (phases 0/2); the first candidate
+    with the lowest cost SAD + lam * ((|dy| + |dx|) >> 1) wins. ``bs`` is
+    the block size the MV grid covers."""
+    bh, bw = _bs2(bs)
+    n_mby, n_mbx = mv_full.shape[:2]
+    h, w = cur.shape
+    dev = cur.device
+    cur_mb = cur.reshape(n_mby, bh, n_mbx, bw)
+    rows = torch.arange(h, device=dev)[:, None] + row0 \
+        + _px(mv_full[..., 0], bh, bw).long() + margin
+    cols = torch.arange(w, device=dev)[None, :] \
+        + _px(mv_full[..., 1], bh, bw).long() + margin
+    base = mv_full * 4
+    mvq = base
+    best = torch.full((n_mby, n_mbx), 2 ** 30, dtype=torch.int32, device=dev)
+    for dy, dx, p, iy, ix in _half_candidates():
+        pred = planes[p][rows + iy, cols + ix]
+        cand = base + torch.tensor([dy, dx], dtype=torch.int32, device=dev)
+        cost = (cur_mb - pred.reshape(n_mby, bh, n_mbx, bw)).abs() \
+            .sum(dim=(1, 3), dtype=torch.int32) + _mv_rate(cand, lam)
+        better = cost < best
+        mvq = torch.where(better[..., None], cand, mvq)
+        best = torch.minimum(cost, best)
+    return mvq
+
+
+def aligned_windows(planes: torch.Tensor, mv_full: torch.Tensor,
+                    margin: int, row0: int = 0, bs=16,
+                    e: int = 1) -> torch.Tensor:
+    """One batched gather of per-block interpolation windows.
+
+    W[p, by, y, bx, x] = planes[p] at integer position (row0 + bh*by + y -
+    e + mv_full[by, bx, 0], bw*bx + x - e + mv_full[by, bx, 1]): every
+    block's (bh+2e) x (bw+2e) neighborhood of all four half-pel planes,
+    aligned at its own full-pel vector. Returns (4, n_mby, bh+2e, n_mbx,
+    bw+2e)."""
+    bh, bw = _bs2(bs)
+    n_mby, n_mbx = mv_full.shape[:2]
+    dev = planes.device
+    mv = mv_full.long()
+    rows = (row0 + bh * torch.arange(n_mby, device=dev)[:, None, None, None]
+            + (torch.arange(bh + 2 * e, device=dev) - e)[None, :, None, None]
+            + mv[:, None, :, None, 0] + margin)
+    cols = (bw * torch.arange(n_mbx, device=dev)[None, None, :, None]
+            + (torch.arange(bw + 2 * e, device=dev) - e)[None, None, None, :]
+            + mv[:, None, :, None, 1] + margin)
+    return planes[:, rows, cols]
+
+
+def refine_half_mc(cur: torch.Tensor, planes: torch.Tensor,
+                   mv_full: torch.Tensor, lam: int, margin: int,
+                   row0: int = 0, bs=16):
+    """Fused half-pel refinement + MC: (mvq, pred) with mvq equal to
+    ``refine_half`` and pred to ``mc_luma_h(planes, mvq)``, from one
+    ``aligned_windows`` gather: every candidate is a static slice of the
+    window, and the winner's prediction is kept beside the cost argmin."""
+    bh, bw = _bs2(bs)
+    n_mby, n_mbx = mv_full.shape[:2]
+    dev = cur.device
+    win = aligned_windows(planes, mv_full, margin, row0, bs, e=1)
+    cur_b = cur.reshape(n_mby, bh, n_mbx, bw)
+    base = mv_full * 4
+    mvq = base
+    best = torch.full((n_mby, n_mbx), 2 ** 30, dtype=torch.int32, device=dev)
+    pred = torch.zeros_like(cur_b)
+    for dy, dx, p, iy, ix in _half_candidates():
+        pr = win[p, :, 1 + iy:1 + iy + bh, :, 1 + ix:1 + ix + bw]
+        cand = base + torch.tensor([dy, dx], dtype=torch.int32, device=dev)
+        cost = (cur_b - pr).abs().sum(dim=(1, 3), dtype=torch.int32) \
+            + _mv_rate(cand, lam)
+        better = cost < best
+        mvq = torch.where(better[..., None], cand, mvq)
+        pred = torch.where(better[:, None, :, None], pr, pred)
+        best = torch.minimum(cost, best)
+    return mvq, pred.reshape(cur.shape)
+
+
+def mc_luma_h(planes, mvq: torch.Tensor, margin: int, row0: int = 0,
+              bs=16) -> torch.Tensor:
+    """Half-pel-only luma MC: mvq phases are in {0, 2}^2 (the
+    ``refine_half`` output), so each pixel reads exactly one of the four
+    planes."""
+    bh, bw = _bs2(bs)
+    n_mby, n_mbx = mvq.shape[:2]
+    h, w = bh * n_mby, bw * n_mbx
+    dev = mvq.device
+    rows = torch.arange(h, device=dev)[:, None] + row0 \
+        + _px(mvq[..., 0] >> 2, bh, bw).long() + margin
+    cols = torch.arange(w, device=dev)[None, :] \
+        + _px(mvq[..., 1] >> 2, bh, bw).long() + margin
+    hy = _px((mvq[..., 0] >> 1) & 1, bh, bw) == 1
+    hx = _px((mvq[..., 1] >> 1) & 1, bh, bw) == 1
+    top = torch.where(hx, planes[1][rows, cols], planes[0][rows, cols])
+    bot = torch.where(hx, planes[3][rows, cols], planes[2][rows, cols])
+    return torch.where(hy, bot, top)

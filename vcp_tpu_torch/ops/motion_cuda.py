@@ -1,11 +1,14 @@
 """Wrapper of the hand-written ``motion_search`` CUDA kernel.
 
-``csrc/motion_search.cu`` replaces the TPU kernel
-``vcp_tpu/ops/motion_pallas.py`` ``full_search_pallas`` (``_kernel_pred``
-with ``with_pred=True``, ``_kernel`` without). On a CUDA tensor the
+``csrc/motion_search.cu`` replaces the two TPU kernels of
+``vcp_tpu/ops/motion_pallas.py`` ``full_search_pallas``: ``_kernel_pred``
+(``with_pred=True``: search + fused full-pel prediction, the full-pel P
+step) and ``_kernel`` (``with_pred=False``: search only, the sub-pel P
+step, which interpolates its own prediction). On a CUDA tensor the
 wrapper launches the kernel (or raises); on a CPU tensor it runs the
-plain PyTorch version, ``motion.full_search`` + ``motion.mc_luma``.
-``motion_search.launches`` counts kernel launches.
+plain PyTorch version, ``motion.full_search`` (+ ``motion.mc_luma``).
+``motion_search.launches_with_pred`` and
+``motion_search.launches_search_only`` count the launches of each.
 """
 
 from __future__ import annotations
@@ -58,8 +61,12 @@ def motion_search(cur: torch.Tensor, ref: torch.Tensor, search_range: int,
         devmod.ptr(cur), devmod.ptr(ref), h, w, sr, int(lam),
         devmod.ptr(mv), devmod.ptr(pred), devmod.stream_ptr(cur))
     devmod.check_launch(lib, err, "motion_search")
-    motion_search.launches += 1
-    return (mv, pred) if with_pred else mv
+    if with_pred:
+        motion_search.launches_with_pred += 1
+        return mv, pred
+    motion_search.launches_search_only += 1
+    return mv
 
 
-motion_search.launches = 0
+motion_search.launches_with_pred = 0
+motion_search.launches_search_only = 0

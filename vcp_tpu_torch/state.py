@@ -1,12 +1,14 @@
 """Carry encoder state over from ``vcp_tpu``.
 
 The port has no weights: its "parameters" are the codec tables it keeps
-as its own copies (quant MF/V, chroma QP, deblock alpha/beta/tc0, CABAC
-context init, scan and block orders, decimation weights), and its state
-is the reference recon plus the QP. :func:`from_reference` takes those
-from the JAX encoder as numpy arrays, checks every table against the
-port's copy, and returns the state as tensors on ``device``, so a P chunk
-can be seeded mid-GOP from the JAX encoder's recon.
+as its own copies (quant MF/V of both transforms, chroma QP, deblock
+alpha/beta/tc0, CABAC context init, scan and block orders, decimation
+weights, the 8x8 intra gather tables), and its state is the reference
+recon plus the QP; the half-pel quality path adds tables and no state.
+:func:`from_reference` takes those from the JAX encoder as numpy arrays,
+checks every table against the port's copy, and returns the state as
+tensors on ``device``, so a P chunk can be seeded mid-GOP from the JAX
+encoder's recon.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from .device import resolve_device
 
 def port_tables() -> dict[str, np.ndarray]:
     """Every table the port keeps, by the ``vcp_tpu`` name."""
-    from .codec.h264 import cabac_tables, frame_ops, gop_ops, tables
-    from .ops import deblock, transform
+    from .codec.h264 import (cabac_tables, frame_ops, gop_ops, intra_rd,
+                             tables)
+    from .ops import deblock, transform, transform8
     return {
         "MF_TABLE": transform.MF_TABLE,
         "V_TABLE": transform.V_TABLE,
@@ -35,6 +38,10 @@ def port_tables() -> dict[str, np.ndarray]:
         "DECIMATE_TAB": gop_ops._DECIMATE_TAB,
         "CTX_INIT_I": np.asarray(cabac_tables.CTX_INIT_I),
         "CTX_INIT_PB": np.asarray(cabac_tables.CTX_INIT_PB),
+        "MF8_TABLE": transform8.MF8_TABLE,
+        "V8_TABLE": transform8.V8_TABLE,
+        "ZIGZAG_8x8": transform8.ZIGZAG_8x8,
+        "I8_TABS": intra_rd.I8_TABS,
     }
 
 
