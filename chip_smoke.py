@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``vcp_tpu_torch/csrc``, holds each
+Builds the port's CUDA kernels from ``vcp_tpu_torch/csrc`` and holds each
 against its plain PyTorch version on the card at 1080p (exact equality:
-the codec is integer-exact), and drives the port's two main paths end to
-end through ``python -m vcp_tpu_torch.cli encode`` on ``cuda``, each with
-the kernels' launch counters zeroed just before and read just after:
+the codec is integer-exact). The one-launch deblocking kernels are also
+held against it at shapes that stress their schedule (one MB row, one MB
+column, 2160p) and, over several hundred random frames, half of them
+beside a busy second stream, against the per-diagonal reference kernels.
+Then it drives the port's two main paths end to end through ``python -m
+vcp_tpu_torch.cli encode`` on ``cuda``, each with the kernels' launch
+counters zeroed just before and read just after:
 
 * the speed shape, ``-p h264-nvenc`` (full-pel ME with the fused
   search + prediction kernel, row-pattern IDR);
@@ -48,6 +52,7 @@ Q_FRAMES = 12
 Q_CUT = 8
 Q_SR = 12                    # its search range (effort 5)
 DEVICE = "cuda"              # the device every main path is driven on
+STRESS_SHAPES = ((16, 1920), (1088, 16), (2160, 3840))
 PSNR_FLOOR_DB = 35.0         # recon luma PSNR floor of the first GOP
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the CUDA-core
 # float32 rate taken as the integer-op ceiling (int32 runs at no more
@@ -208,6 +213,35 @@ def _filtered_lines(bs_v, bs_h):
     return luma, chroma
 
 
+def _deblock_row(name, line, dev, reps, planes, err, kernel, diag, plain,
+                 grid_bytes, nops):
+    """Times of one deblock kernel (the wrapper call), of the per-diagonal
+    reference and of the plain version on the same inputs, and the bound:
+    each plane read and written once plus the edge grids, or the filter
+    operations this data needs."""
+    y, u, v = planes
+    h, w = y.shape
+    if max_abs_err(kernel(), diag()):
+        raise AssertionError(f"{name}: the per-diagonal reference "
+                             f"disagrees with the kernel")
+    ms = time_ms(kernel, dev, reps)
+    diag_ms = time_ms(diag, dev, reps)
+    if not ms < diag_ms:
+        raise AssertionError(f"{name}: one launch takes {ms:.4f} ms, the "
+                             f"per-diagonal reference {diag_ms:.4f} ms")
+    plain_ms = time_ms(plain, dev, max(1, reps // 10))
+    d_steps = w // 16 + 2 * (h // 16 - 1)
+    nbytes = 2 * (y.numel() + u.numel() + v.numel()) * 4 + grid_bytes
+    bms, by = bound_ms(nbytes, nops)
+    return {"name": name, "route": "cuda",
+            "source": "vcp_tpu_torch/csrc/deblock.cu",
+            "replaces": f"vcp_tpu/ops/deblock_pallas.py:{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "diag_ms": diag_ms, "d_steps": d_steps,
+            "step_us": ms * 1e3 / d_steps}
+
+
 def check_deblock_fast(dev, h, w, reps):
     from vcp_tpu_torch.ops import deblock, deblock_cuda
     rng = np.random.default_rng(2)
@@ -239,20 +273,13 @@ def check_deblock_fast(dev, h, w, reps):
     if err:
         raise AssertionError(f"deblock_fast disagrees (max err {err})")
     y, u, v, bs_v, bs_h, scal = last
-    ms = time_ms(lambda: deblock_cuda.deblock_fast(y, u, v, bs_v, bs_h,
-                                                   scal), dev, reps)
-    plain_ms = time_ms(lambda: deblock.deblock_fast_plain(
-        y, u, v, bs_v, bs_h, scal), dev, max(1, reps // 10))
     luma, chroma = _filtered_lines(bs_v, bs_h)
-    plane_bytes = (h * w + 2 * (h // 2) * (w // 2)) * 4
-    nbytes = 2 * plane_bytes + (bs_v.numel() + bs_h.numel()) * 4
-    nops = luma * 35 + chroma * 20
-    bms, by = bound_ms(nbytes, nops)
-    return {"name": "deblock_fast", "route": "cuda",
-            "source": "vcp_tpu_torch/csrc/deblock.cu",
-            "replaces": "vcp_tpu/ops/deblock_pallas.py:364",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return _deblock_row(
+        "deblock_fast", 364, dev, reps, (y, u, v), err,
+        lambda: deblock_cuda.deblock_fast(y, u, v, bs_v, bs_h, scal),
+        lambda: deblock_cuda.deblock_fast_diag(y, u, v, bs_v, bs_h, scal),
+        lambda: deblock.deblock_fast_plain(y, u, v, bs_v, bs_h, scal),
+        (bs_v.numel() + bs_h.numel()) * 4, luma * 35 + chroma * 20)
 
 
 def check_deblock_general(dev, h, w, reps):
@@ -276,20 +303,14 @@ def check_deblock_general(dev, h, w, reps):
         f"(luma samples changed {int((ref[0] != y).sum())})")
     if err:
         raise AssertionError(f"deblock_general disagrees (max err {err})")
-    ms = time_ms(lambda: deblock_cuda.deblock_general(y, u, v, *grids,
-                                                      strong=True), dev, reps)
-    plain_ms = time_ms(lambda: deblock.deblock_general_plain(
-        y, u, v, *grids, strong=True), dev, max(1, reps // 10))
     luma, chroma = _filtered_lines(bs_v, bs_h)
-    plane_bytes = (h * w + 2 * (h // 2) * (w // 2)) * 4
-    nbytes = 2 * plane_bytes + sum(g.numel() for g in grids) * 4
-    nops = luma * 50 + chroma * 20
-    bms, by = bound_ms(nbytes, nops)
-    return {"name": "deblock_general", "route": "cuda",
-            "source": "vcp_tpu_torch/csrc/deblock.cu",
-            "replaces": "vcp_tpu/ops/deblock_pallas.py:424",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return _deblock_row(
+        "deblock_general", 424, dev, reps, (y, u, v), err,
+        lambda: deblock_cuda.deblock_general(y, u, v, *grids, strong=True),
+        lambda: deblock_cuda.deblock_general_diag(y, u, v, *grids,
+                                                  strong=True),
+        lambda: deblock.deblock_general_plain(y, u, v, *grids, strong=True),
+        sum(g.numel() for g in grids) * 4, luma * 50 + chroma * 20)
 
 
 def check_deblock_general_no_strong(dev, h, w, reps):
@@ -321,22 +342,149 @@ def check_deblock_general_no_strong(dev, h, w, reps):
     if err:
         raise AssertionError(f"deblock_general(strong=False) disagrees "
                              f"(max err {err})")
-    ms = time_ms(lambda: deblock_cuda.deblock_general(
-        y, u, v, *grids, strong=False), dev, reps)
-    plain_ms = time_ms(lambda: deblock.deblock_general_plain(
-        y, u, v, *grids, strong=False), dev, max(1, reps // 10))
     luma, chroma = _filtered_lines(bs_v, bs_h)
-    plane_bytes = (h * w + 2 * (h // 2) * (w // 2)) * 4
-    nbytes = 2 * plane_bytes + sum(g.numel() for g in grids) * 4
-    bms, by = bound_ms(nbytes, luma * 35 + chroma * 20)
-    return {"name": "deblock_general_no_strong", "route": "cuda",
-            "source": "vcp_tpu_torch/csrc/deblock.cu",
-            "replaces": "vcp_tpu/ops/deblock_pallas.py:424",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "note": "strong=False; its one caller in vcp_tpu is the "
-                    "multi-chip step (ROADMAP A10), so no main path of the "
-                    "port launches it yet"}
+    row = _deblock_row(
+        "deblock_general_no_strong", 424, dev, reps, (y, u, v), err,
+        lambda: deblock_cuda.deblock_general(y, u, v, *grids, strong=False),
+        lambda: deblock_cuda.deblock_general_diag(y, u, v, *grids,
+                                                  strong=False),
+        lambda: deblock.deblock_general_plain(y, u, v, *grids,
+                                              strong=False),
+        sum(g.numel() for g in grids) * 4, luma * 35 + chroma * 20)
+    row["note"] = ("strong=False; its one caller in vcp_tpu is the "
+                   "multi-chip step (ROADMAP A10), so no main path of the "
+                   "port launches it yet")
+    return row
+
+
+def check_deblock_shapes(dev, shapes=STRESS_SHAPES):
+    """Shapes that stress the schedule of the one-launch kernels, each
+    against the plain version once: a single MB row, a single MB column,
+    and 2160p, which has more MB rows (135) than the card has SMs."""
+    from vcp_tpu_torch.ops import deblock, deblock_cuda
+    rng = np.random.default_rng(5)
+    for h, w in shapes:
+        n_mby, n_mbx = h // 16, w // 16
+        y, u, v = (torch.as_tensor(p, dtype=torch.int32, device=dev)
+                   for p in _deblock_planes(rng, h, w))
+        nz = torch.as_tensor(rng.random((h // 4, w // 4)) < 0.3, device=dev)
+        mv = torch.as_tensor(
+            (rng.random((n_mby, n_mbx, 1)) < 0.3)
+            * rng.integers(-8, 9, (n_mby, n_mbx, 2)), dtype=torch.int32,
+            device=dev)
+        qp_mb = torch.as_tensor(rng.integers(24, 46, (n_mby, n_mbx)),
+                                dtype=torch.int32, device=dev)
+        for name, all_intra in (("deblock_fast", False),
+                                ("deblock_general strong=True", True)):
+            intra = torch.full((n_mby, n_mbx), all_intra, device=dev)
+            bs_v = deblock.compute_bs_luma(intra, nz, mv, True)
+            bs_h = deblock.compute_bs_luma(intra, nz, mv, False)
+            t0 = time.monotonic()
+            if all_intra:
+                grids = deblock.threshold_grids(bs_v, bs_h, qp_mb)
+                ref = deblock.deblock_general_plain(y, u, v, *grids)
+                out = deblock_cuda.deblock_general(y, u, v, *grids)
+            else:
+                scal = deblock.deblock_scalars(34)
+                ref = deblock.deblock_fast_plain(y, u, v, bs_v, bs_h, scal)
+                out = deblock_cuda.deblock_fast(y, u, v, bs_v, bs_h, scal)
+            e = max_abs_err(out, ref)
+            log(f"  {name} {h}x{w}: max_abs_err {e} (luma samples changed "
+                f"{int((ref[0] != y).sum())}, {time.monotonic() - t0:.1f} s)")
+            if e:
+                raise AssertionError(f"{name} disagrees at {h}x{w} "
+                                     f"(max err {e})")
+
+
+def _busy_stream(dev, n: int):
+    """Queue ``n`` large matrix products on a side stream, so that the
+    kernels launched meanwhile find the card occupied and their blocks
+    are not all resident at once."""
+    side = torch.cuda.Stream(dev)
+    a = torch.ones((4096, 4096), device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(n):
+            a @ a
+    return side
+
+
+def race_hunt(dev, h, w, n_random: int = 200, n_repeat: int = 50):
+    """The one-launch kernels against the per-diagonal reference kernels,
+    exact equality: for each instantiation ``n_random`` calls on fresh
+    random frames (content, QP, residual density and intra share drawn
+    per call on the card, some frames with every bS 0) and ``n_repeat``
+    calls on one frame that must all return the same planes. The second
+    half of each runs beside a busy side stream."""
+    from vcp_tpu_torch.ops import deblock, deblock_cuda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    n_mby, n_mbx = h // 16, w // 16
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    base = (100 + (xx * 60) // w + (yy * 40) // h).to(torch.int32)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def plane(b):
+        hh, ww = b.shape
+        steps = randint(-6, 7, (hh // 4, ww // 4)) \
+            .repeat_interleave(4, 0).repeat_interleave(4, 1)
+        return (b + steps + randint(-2, 3, (hh, ww))).clamp_(0, 255)
+
+    def draw(mode: int, i: int):
+        """Inputs of call ``i`` as (kernel call, reference call)."""
+        dens = (0.0, 0.0, 0.02, 0.1, 0.3, 0.6, 1.0)[i % 7]
+        empty = i % 7 == 0                     # every bS 0
+        y, u, v = plane(base), plane(base[::2, ::2]), plane(base[::2, ::2])
+        nz = rand((h // 4, w // 4)) < dens
+        mv = randint(-8, 9, (n_mby, n_mbx, 2)) \
+            * (rand((n_mby, n_mbx, 1)) < (0.0 if empty else 0.3))
+        p_intra = (0.0, 0.1, 0.5, 1.0)[i % 4] if mode == 2 and not empty \
+            else 0.0
+        intra = rand((n_mby, n_mbx)) < p_intra
+        bs_v = deblock.compute_bs_luma(intra, nz, mv, True)
+        bs_h = deblock.compute_bs_luma(intra, nz, mv, False)
+        if mode == 0:
+            a = (y, u, v, bs_v, bs_h, deblock.deblock_scalars(20 + i % 30))
+            return (lambda: deblock_cuda.deblock_fast(*a),
+                    lambda: deblock_cuda.deblock_fast_diag(*a))
+        qp_mb = randint(16, 48, (n_mby, n_mbx))
+        a = (y, u, v, *deblock.threshold_grids(bs_v, bs_h, qp_mb))
+        return (lambda: deblock_cuda.deblock_general(*a, strong=mode == 2),
+                lambda: deblock_cuda.deblock_general_diag(
+                    *a, strong=mode == 2))
+
+    for mode, name in ((0, "deblock_fast"), (1, "deblock_general "
+                       "strong=False"), (2, "deblock_general strong=True")):
+        t0 = time.monotonic()
+        bad = 0
+        for i in range(n_random):
+            side = _busy_stream(dev, 2) if i >= n_random // 2 else None
+            kernel, reference = draw(mode, i)
+            out, ref = kernel(), reference()
+            bad += sum(int((a != b).sum()) for a, b in zip(out, ref))
+            if side is not None:
+                side.synchronize()
+        kernel, reference = draw(mode, 5)
+        ref = reference()
+        for i in range(n_repeat):
+            side = _busy_stream(dev, 2) if i >= n_repeat // 2 else None
+            bad += sum(int((a != b).sum()) for a, b in zip(kernel(), ref))
+            if side is not None:
+                side.synchronize()
+        log(f"  race hunt {name} {h}x{w}: {n_random} random frames and "
+            f"{n_repeat} repeats against the per-diagonal reference, half "
+            f"beside a busy stream: {bad} differing samples "
+            f"({time.monotonic() - t0:.1f} s)")
+        if bad:
+            raise AssertionError(f"{name}: {bad} samples differ from the "
+                                 f"per-diagonal reference")
 
 
 # ---------------------------------------------------------------------------
@@ -580,7 +728,10 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
                 env: dict | None = None) -> None:
     """Device time of one GOP on cuda, by kernel, from torch.profiler; the
     wall clock includes the profiler's overhead. ``cpu_ops=False`` traces
-    the device side only (a GOP with several hundred thousand launches)."""
+    the device side only (a GOP with several hundred thousand launches).
+    Fails unless every deblock wrapper call of the GOP shows as exactly
+    one ``deblock_wave`` device kernel and no per-diagonal reference
+    kernel ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from vcp_tpu_torch.codec.args import parse_encode_args
@@ -591,6 +742,9 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
                                         1)
         enc = H264Encoder(cfg, device="cuda")
         torch.cuda.synchronize()
+        counters = [launch_counters()[k] for k in (
+            "deblock_fast", "deblock_general", "deblock_general_no_strong")]
+        calls = -sum(getattr(fn, attr) for fn, attr in counters)
         acts = [ProfilerActivity.CUDA] + (
             [ProfilerActivity.CPU] if cpu_ops else [])
         with profile(activities=acts) as prof:
@@ -598,6 +752,7 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
             enc.encode_gop(frames)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
+        calls += sum(getattr(fn, attr) for fn, attr in counters)
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -616,6 +771,16 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
     for name, (cnt, ms) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][1])[:10]:
         log(f"    {ms:9.3f} ms {cnt:6d}x  {name[:90]}")
+    wave = [v for k, v in by_name.items() if "deblock_wave" in k]
+    n_wave, n_diag = sum(v[0] for v in wave), sum(
+        v[0] for k, v in by_name.items() if "deblock_diag" in k)
+    log(f"    deblock: {calls} wrapper calls, {n_wave} deblock_wave device "
+        f"kernels ({sum(v[1] for v in wave):.3f} ms), {n_diag} "
+        f"deblock_diag kernels")
+    if calls == 0 or n_wave != calls or n_diag:
+        raise AssertionError(
+            f"{label}: {calls} deblock calls but {n_wave} deblock_wave and "
+            f"{n_diag} deblock_diag device kernels")
 
 
 def main(argv: list[str]) -> int:
@@ -651,7 +816,16 @@ def main(argv: list[str]) -> int:
     for row in rows:
         log(f"  {row['name']}: {row['ms']:.4f} ms (plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms by "
-            f"{row['bound_by']})")
+            f"{row['bound_by']})" + (
+                f", per-diagonal reference {row['diag_ms']:.4f} ms, "
+                f"{row['step_us']:.3f} us per step of {row['d_steps']}"
+                if "diag_ms" in row else ""))
+    log("phase 2b: the one-launch deblock kernels at shapes that stress "
+        "the schedule, and against the per-diagonal reference")
+    check_deblock_shapes(dev)
+    race_hunt(dev, HP, W)
+    race_hunt(dev, *STRESS_SHAPES[-1], n_random=16, n_repeat=4)
+    torch.cuda.synchronize()
     if "--kernels-only" in argv:
         print("kernels only: main paths not driven, no result")
         return 0

@@ -17,7 +17,9 @@ Two forms, each the plain version of one CUDA kernel in ``deblock_cuda``:
   grids and, with ``strong=True``, the bS 4 strong filter; the IDR path.
 
 ``deblock_frame`` computes the grids and routes to the kernel wrappers,
-which run these plain versions only for CPU tensors.
+which run these plain versions only for CPU tensors. ``deblock_mb_plain``
+is one macroblock step of the same filter, the unit the CUDA kernel's
+blocks schedule; the tests use it to check the kernel's wait rule.
 """
 
 from __future__ import annotations
@@ -373,6 +375,48 @@ def deblock_fast_plain(y, u, v, bs_v, bs_h, scal):
     filter (bS <= 3) from the two bS grids and the ten scalars."""
     return deblock_general_plain(y, u, v, *fast_grids(bs_v, bs_h, scal),
                                  strong=False)
+
+
+def deblock_mb_plain(y, u, v, grids, mbx: int, mby: int,
+                     strong: bool = True) -> None:
+    """One macroblock step of the spec-order filter, in place on whole
+    planes: exactly what one block step of the ``deblock_wave`` kernel
+    filters. MB (mbx, mby)'s four vertical luma edges left to right, then
+    its four horizontal ones top to bottom, and likewise the two and two
+    chroma edges of each plane; frame-edge positions are no edges.
+    ``grids`` are the general-form threshold grids (``threshold_grids``
+    or ``fast_grids``). Applied to every MB in an order in which MB
+    (x, y) comes after MB (x-1, y) and after MB (min(x+1, nMBx-1), y-1),
+    it equals ``deblock_general_plain``."""
+    vthr, hthr, cvthr, chthr = grids
+
+    def step(plane, vt, ht, size, n_edges, core, taps):
+        half = taps // 2
+        r0, c0 = size * mby, size * mbx
+        rows, cols = slice(r0, r0 + size), slice(c0, c0 + size)
+        for k in range(n_edges):
+            x = c0 + 4 * k
+            if x == 0:
+                continue
+            out = core(*(plane[rows, x - half + i] for i in range(taps)),
+                       *vt[:, rows, x // 4])
+            plane[rows, x - len(out) // 2:x + len(out) // 2] = \
+                torch.stack(out, dim=1)
+        for k in range(n_edges):
+            yy = r0 + 4 * k
+            if yy == 0:
+                continue
+            out = core(*(plane[yy - half + i, cols] for i in range(taps)),
+                       *ht[:, yy // 4, cols])
+            plane[yy - len(out) // 2:yy + len(out) // 2, cols] = \
+                torch.stack(out, dim=0)
+
+    def luma(*a):
+        return filter_core_luma(*a, strong=strong)
+
+    step(y, vthr, hthr, 16, 4, luma, 8)
+    step(u, cvthr, chthr, 8, 2, filter_core_chroma, 4)
+    step(v, cvthr, chthr, 8, 2, filter_core_chroma, 4)
 
 
 def deblock_frame(y, u, v, qp_mb, intra_mb, nz_y, mvq,

@@ -5,11 +5,19 @@
 all-inter ``_kernel_fast`` (``wavefront_pallas_fast``), and
 ``deblock_general`` the threshold-grid ``_kernel`` (``wavefront_pallas``,
 strong filter optional). On CUDA tensors each wrapper launches its kernel
-(one grid per wavefront diagonal, all on the current stream) or raises;
-on CPU tensors it runs the plain PyTorch version in ``deblock``. Each
-wrapper's ``launches`` counts its calls that launched the kernel (one
-call = one frame = d_steps grid launches); ``deblock_general`` counts
-its ``strong=False`` instantiation apart, in ``launches_no_strong``.
+or raises; on CPU tensors it runs the plain PyTorch version in
+``deblock``. One call is one kernel launch, ``deblock_wave``, that carries
+the whole spec-order wavefront of a frame; the wrapper allocates the
+output planes (the kernel writes every sample of them) and the zeroed
+progress counters the kernel's blocks synchronise through. Each wrapper's
+``launches`` counts its calls that launched the kernel;
+``deblock_general`` counts its ``strong=False`` instantiation apart, in
+``launches_no_strong``.
+
+``deblock_fast_diag`` and ``deblock_general_diag`` run the earlier design
+(one grid launch per wavefront diagonal) of the same source. They are an
+independent reference on the card for checks and timing; no encode path
+calls them and they count no launches.
 """
 
 from __future__ import annotations
@@ -25,25 +33,18 @@ def _lib() -> ctypes.CDLL:
     lib = devmod.kernel_lib("deblock.cu")
     if lib.vcp_deblock_fast.argtypes is None:
         c_int, vp = ctypes.c_int, ctypes.c_void_p
-        lib.vcp_deblock_fast.restype = c_int
-        lib.vcp_deblock_fast.argtypes = [vp, vp, vp, c_int, c_int,
-                                         vp, vp, vp, vp, vp]
-        lib.vcp_deblock_general.restype = c_int
-        lib.vcp_deblock_general.argtypes = [vp, vp, vp, c_int, c_int,
-                                            vp, vp, vp, vp, vp, c_int, vp]
+        for fn, args in (
+                (lib.vcp_deblock_fast,
+                 [vp] * 6 + [c_int, c_int] + [vp] * 5),
+                (lib.vcp_deblock_general,
+                 [vp] * 6 + [c_int, c_int] + [vp] * 5 + [c_int, vp]),
+                (lib.vcp_deblock_fast_diag,
+                 [vp] * 3 + [c_int, c_int] + [vp] * 4),
+                (lib.vcp_deblock_general_diag,
+                 [vp] * 3 + [c_int, c_int] + [vp] * 4 + [c_int, vp])):
+            fn.restype = c_int
+            fn.argtypes = args
     return lib
-
-
-def _diagonal_activity(act_mb: torch.Tensor) -> torch.Tensor:
-    """(nMBy, nMBx) bool MB activity → (d_steps,) int32 per diagonal
-    d = mbx + 2*mby (nonzero where any MB on it has a bS > 0 edge)."""
-    n_mby, n_mbx = act_mb.shape
-    dev = act_mb.device
-    diag = (torch.arange(n_mbx, device=dev)[None, :]
-            + 2 * torch.arange(n_mby, device=dev)[:, None]).reshape(-1)
-    act = torch.zeros(n_mbx + 2 * (n_mby - 1), dtype=torch.int32,
-                      device=dev)
-    return act.index_add_(0, diag, act_mb.reshape(-1).to(torch.int32))
 
 
 def _check_planes(y, u, v):
@@ -65,6 +66,44 @@ def _check_grid(name, t, dev, shape):
                          f"{shape}")
 
 
+def _check_fast(y, u, v, bs_v, bs_h, scal):
+    dev, h, w = _check_planes(y, u, v)
+    _check_grid("bs_v", bs_v, dev, (w // 4 - 1, h // 4))
+    _check_grid("bs_h", bs_h, dev, (h // 4 - 1, w // 4))
+    if len(scal) != 10:
+        raise ValueError("deblock_fast: need ten scalar thresholds")
+    scal_host = (ctypes.c_int32 * 10)(*(int(s) for s in scal))
+    return h, w, ctypes.cast(scal_host, ctypes.c_void_p)
+
+
+def _check_general(y, u, v, vthr, hthr, cvthr, chthr):
+    dev, h, w = _check_planes(y, u, v)
+    hc, wc = h // 2, w // 2
+    _check_grid("vthr", vthr, dev, (4, h, w // 4))
+    _check_grid("hthr", hthr, dev, (4, h // 4, w))
+    _check_grid("cvthr", cvthr, dev, (4, hc, wc // 4))
+    _check_grid("chthr", chthr, dev, (4, hc // 4, wc))
+    return h, w
+
+
+def _aligned(*tensors):
+    """The tensors, each at a 16-byte aligned address: the kernel fetches
+    planes and grids with 16-byte loads. A fresh allocation always is; a
+    view at an odd offset is copied."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in tensors)
+
+
+def _outputs(y, u, v):
+    """Output planes (every sample is written by the kernel) and the
+    zeroed scratch of the wavefront: one progress counter per MB row and
+    the ticket counter."""
+    progress = torch.zeros(y.shape[0] // 16 + 1, dtype=torch.int32,
+                           device=y.device)
+    return torch.empty_like(y), torch.empty_like(u), torch.empty_like(v), \
+        progress
+
+
 def deblock_fast(y, u, v, bs_v, bs_h, scal):
     """Uniform-QP all-inter filter (bS <= 3). y (H, W), u/v (H/2, W/2)
     int32; bs_v (W/4-1, H/4), bs_h (H/4-1, W/4) int32 from
@@ -73,26 +112,15 @@ def deblock_fast(y, u, v, bs_v, bs_h, scal):
     if not y.is_cuda:
         from .deblock import deblock_fast_plain
         return deblock_fast_plain(y, u, v, bs_v, bs_h, scal)
-    dev, h, w = _check_planes(y, u, v)
-    _check_grid("bs_v", bs_v, dev, (w // 4 - 1, h // 4))
-    _check_grid("bs_h", bs_h, dev, (h // 4 - 1, w // 4))
-    if len(scal) != 10:
-        raise ValueError("deblock_fast: need ten scalar thresholds")
-    n_mby, n_mbx = h // 16, w // 16
-    zc = torch.zeros((1, h // 4), dtype=torch.int32, device=dev)
-    zr = torch.zeros((1, w // 4), dtype=torch.int32, device=dev)
-    act_v = torch.cat([zc, bs_v]).reshape(n_mbx, 4, n_mby, 4) \
-        .amax(dim=(1, 3)).T
-    act_h = torch.cat([zr, bs_h]).reshape(n_mby, 4, n_mbx, 4) \
-        .amax(dim=(1, 3))
-    act = _diagonal_activity((act_v + act_h) > 0)
-    yo, uo, vo = y.clone(), u.clone(), v.clone()
-    scal_host = (ctypes.c_int32 * 10)(*(int(s) for s in scal))
+    h, w, scal_host = _check_fast(y, u, v, bs_v, bs_h, scal)
+    y, u, v = _aligned(y, u, v)
+    yo, uo, vo, progress = _outputs(y, u, v)
     lib = _lib()
     err = lib.vcp_deblock_fast(
+        devmod.ptr(y), devmod.ptr(u), devmod.ptr(v),
         devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
-        devmod.ptr(bs_v), devmod.ptr(bs_h), devmod.ptr(act),
-        ctypes.cast(scal_host, ctypes.c_void_p), devmod.stream_ptr(y))
+        devmod.ptr(bs_v), devmod.ptr(bs_h), scal_host,
+        devmod.ptr(progress), devmod.stream_ptr(y))
     devmod.check_launch(lib, err, "deblock_fast")
     deblock_fast.launches += 1
     return yo, uo, vo
@@ -106,30 +134,51 @@ def deblock_general(y, u, v, vthr, hthr, cvthr, chthr, strong: bool = True):
         from .deblock import deblock_general_plain
         return deblock_general_plain(y, u, v, vthr, hthr, cvthr, chthr,
                                      strong=strong)
-    dev, h, w = _check_planes(y, u, v)
-    hc, wc = h // 2, w // 2
-    _check_grid("vthr", vthr, dev, (4, h, w // 4))
-    _check_grid("hthr", hthr, dev, (4, h // 4, w))
-    _check_grid("cvthr", cvthr, dev, (4, hc, wc // 4))
-    _check_grid("chthr", chthr, dev, (4, hc // 4, wc))
-    n_mby, n_mbx = h // 16, w // 16
-    act_mb = (vthr[0].reshape(n_mby, 16, n_mbx, 4).amax(dim=(1, 3))
-              + hthr[0].reshape(n_mby, 4, n_mbx, 16).amax(dim=(1, 3))
-              + cvthr[0].reshape(n_mby, 8, n_mbx, 2).amax(dim=(1, 3))
-              + chthr[0].reshape(n_mby, 2, n_mbx, 8).amax(dim=(1, 3))) > 0
-    act = _diagonal_activity(act_mb)
-    yo, uo, vo = y.clone(), u.clone(), v.clone()
+    h, w = _check_general(y, u, v, vthr, hthr, cvthr, chthr)
+    y, u, v, vthr, hthr, cvthr, chthr = _aligned(y, u, v, vthr, hthr, cvthr,
+                                                 chthr)
+    yo, uo, vo, progress = _outputs(y, u, v)
     lib = _lib()
     err = lib.vcp_deblock_general(
+        devmod.ptr(y), devmod.ptr(u), devmod.ptr(v),
         devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
         devmod.ptr(vthr), devmod.ptr(hthr), devmod.ptr(cvthr),
-        devmod.ptr(chthr), devmod.ptr(act), 1 if strong else 0,
+        devmod.ptr(chthr), devmod.ptr(progress), 1 if strong else 0,
         devmod.stream_ptr(y))
     devmod.check_launch(lib, err, "deblock_general")
     if strong:
         deblock_general.launches += 1
     else:
         deblock_general.launches_no_strong += 1
+    return yo, uo, vo
+
+
+def deblock_fast_diag(y, u, v, bs_v, bs_h, scal):
+    """``deblock_fast`` by the per-diagonal reference kernels (CUDA
+    tensors only): one grid launch per wavefront diagonal, in place on
+    copies of the planes."""
+    h, w, scal_host = _check_fast(y, u, v, bs_v, bs_h, scal)
+    yo, uo, vo = y.clone(), u.clone(), v.clone()
+    lib = _lib()
+    err = lib.vcp_deblock_fast_diag(
+        devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
+        devmod.ptr(bs_v), devmod.ptr(bs_h), scal_host, devmod.stream_ptr(y))
+    devmod.check_launch(lib, err, "deblock_fast_diag")
+    return yo, uo, vo
+
+
+def deblock_general_diag(y, u, v, vthr, hthr, cvthr, chthr,
+                         strong: bool = True):
+    """``deblock_general`` by the per-diagonal reference kernels (CUDA
+    tensors only)."""
+    h, w = _check_general(y, u, v, vthr, hthr, cvthr, chthr)
+    yo, uo, vo = y.clone(), u.clone(), v.clone()
+    lib = _lib()
+    err = lib.vcp_deblock_general_diag(
+        devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
+        devmod.ptr(vthr), devmod.ptr(hthr), devmod.ptr(cvthr),
+        devmod.ptr(chthr), 1 if strong else 0, devmod.stream_ptr(y))
+    devmod.check_launch(lib, err, "deblock_general_diag")
     return yo, uo, vo
 
 
