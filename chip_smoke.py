@@ -4,10 +4,18 @@
 
 Builds the port's CUDA kernels from ``vcp_tpu_torch/csrc`` and holds each
 against its plain PyTorch version on the card at 1080p (exact equality:
-the codec is integer-exact). The one-launch deblocking kernels are also
-held against it at shapes that stress their schedule (one MB row, one MB
-column, 2160p) and, over several hundred random frames, half of them
-beside a busy second stream, against the per-diagonal reference kernels.
+the codec is integer-exact). The motion-search kernel is also held
+against its plain version and against the reference design (the per-MB
+kernel of the first slice) at every search range of the effort ladder,
+0 and 32, on content from flat to saturated, at 16x16, one MB row, one
+MB column and 2160p, and on a few hundred random frames; a child process
+checks that a sample outside 0..255 makes it fail. Its bound comes from
+the absolute-difference sequence rates measured in the same run
+(``vcp_tpu_torch.tools.probe_motion``). The one-launch deblocking
+kernels are also held against it at shapes that stress their schedule
+(one MB row, one MB column, 2160p) and, over several hundred random
+frames, half of them beside a busy second stream, against the
+per-diagonal reference kernels.
 Then it drives the port's two main paths end to end through ``python -m
 vcp_tpu_torch.cli encode`` on ``cuda``, each with the kernels' launch
 counters zeroed just before and read just after:
@@ -132,11 +140,33 @@ def max_abs_err(outs, refs) -> int:
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_motion(dev, h, w, reps):
-    """Both instantiations of the search kernel: with the fused prediction
-    at the speed shape's range, search-only at the quality shape's."""
-    from vcp_tpu_torch.ops import motion, motion_cuda
-    rng = np.random.default_rng(1)
+MOTION_SRS = (0, 4, 6, 8, 12, 16, 24, 32)   # the effort ladder, 0, the limit
+MOTION_LAMS = (0, 22, 1000)                 # none, the speed path's, large
+MOTION_SHAPES = ((16, 16), *STRESS_SHAPES)
+MOTION_ROWS = ((True, 8, 22, "motion_search", 207),
+               (False, Q_SR, 8, "motion_search_only", 225))
+# A child launches the kernel on a reference plane holding 256 and must
+# fail: the packed samples are exact only for 0..255, so the kernel traps.
+TRAP_CHILD = """
+import torch
+from vcp_tpu_torch.ops import motion_cuda
+cur = torch.full((64, 64), 100, dtype=torch.int32, device="cuda")
+ref = cur.clone()
+motion_cuda.motion_search(cur, ref, 8, 4)
+torch.cuda.synchronize()
+print("in range: ok", flush=True)
+ref[17, 33] = 256
+motion_cuda.motion_search(cur, ref, 8, 4)
+torch.cuda.synchronize()
+print("out of range: no fault", flush=True)
+"""
+
+
+def _motion_contents(h, w, seed):
+    """(name, cur, ref) numpy planes: shifted texture with noise, flat
+    32x32 blocks moved by (8, 5), all 0, all 255, and a 0/255
+    checkerboard against its inverse (every difference 255)."""
+    rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     base = (128 + 60 * np.sin(xx / 23.0) * np.cos(yy / 31.0)).astype(np.int32)
     noisy_cur = np.clip(base + rng.integers(-20, 21, (h, w)), 0, 255)
@@ -144,51 +174,186 @@ def check_motion(dev, h, w, reps):
                         + rng.integers(-3, 4, (h, w)), 0, 255)
     blocks = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1))
     flat_cur = np.repeat(np.repeat(blocks, 32, 0), 32, 1)[:h, :w]
-    flat_ref = np.roll(flat_cur, (8, 5), (0, 1))
-    cases = [("shifted+noise", noisy_cur, noisy_ref),
-             ("flat", flat_cur, flat_ref)]
+    checker = 255 * ((yy + xx) % 2)
+    return [("shifted+noise", noisy_cur, noisy_ref),
+            ("flat", flat_cur, np.roll(flat_cur, (8, 5), (0, 1))),
+            ("all 0", np.zeros((h, w)), np.zeros((h, w))),
+            ("all 255", np.full((h, w), 255), np.full((h, w), 255)),
+            ("checkerboard", checker, 255 - checker)]
+
+
+def _motion_errs(cur, ref, sr, lam):
+    """Max abs errors of the kernel, with the prediction and search-only,
+    against the plain version and against the reference design."""
+    from vcp_tpu_torch.ops import motion, motion_cuda
+    mv_p, _ = motion.full_search(cur, ref, sr, lam)
+    pred_p = motion.mc_luma(ref, mv_p, sr)
+    mv_k = motion_cuda.motion_search(cur, ref, sr, lam)
+    kp = motion_cuda.motion_search(cur, ref, sr, lam, with_pred=True)
+    mv_r = motion_cuda.motion_search_ref(cur, ref, sr, lam)
+    rp = motion_cuda.motion_search_ref(cur, ref, sr, lam, with_pred=True)
+    return {True: max(max_abs_err(kp, (mv_p, pred_p)), max_abs_err(kp, rp)),
+            False: max(max_abs_err((mv_k,), (mv_p,)),
+                       max_abs_err((mv_k,), (mv_r,)))}
+
+
+def motion_random_pairs(dev, h, w, n):
+    """``n`` seeded random (cur, ref) pairs, the kernel against the
+    reference design: uniform noise, three levels (many ties) and shifted
+    copies with a little noise (exact matches), at every range of the
+    effort ladder and some odd ones the wrapper also takes (the window
+    starts off a word and 2 sr + 1 is 3 mod 4), lam 0 / 4 / 22 / 1000,
+    both instantiations."""
+    from vcp_tpu_torch.ops import motion_cuda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    def randint(lo, hi, shape=(h, w)):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    bad = 0
+    srs = (4, 6, 8, 12, 16, 24, 1, 3, 5, 7, 9, 31)
+    for i in range(n):     # every (range, lam, prediction) for each kind
+        sr = srs[i % len(srs)]
+        lam = (0, 4, 22, 1000)[i // len(srs) % 4]
+        with_pred = i // (4 * len(srs)) % 2 == 0
+        kind = i // (8 * len(srs)) % 3
+        if kind == 0:
+            cur, ref = randint(0, 256), randint(0, 256)
+        elif kind == 1:
+            cur, ref = randint(0, 3) * 127 + 1, randint(0, 3) * 127 + 1
+        else:
+            cur = randint(0, 256)
+            dy, dx = (int(v) for v in randint(-30, 31, (2,)))
+            ref = (torch.roll(cur, (dy, dx), (0, 1))
+                   + randint(-2, 3)).clamp_(0, 255)
+        got = motion_cuda.motion_search(cur, ref, sr, lam, with_pred)
+        want = motion_cuda.motion_search_ref(cur, ref, sr, lam, with_pred)
+        bad += max_abs_err(*((got, want) if with_pred
+                             else ((got,), (want,))))
+    return bad
+
+
+def check_motion_trap() -> None:
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", TRAP_CHILD], cwd=here,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    errors = [ln for ln in out.stderr.splitlines() if "error" in ln.lower()]
+    log(f"  range trap: child exit {out.returncode}, stdout "
+        f"{out.stdout.strip().splitlines()}, first error line "
+        f"{(errors or [''])[0]!r}")
+    if "in range: ok" not in out.stdout or out.returncode == 0 \
+            or "no fault" in out.stdout:
+        raise AssertionError("motion_search did not fail on a sample of "
+                             "256")
+
+
+def check_motion(dev, h, w, reps):
+    """Both instantiations of the search kernel against the plain version
+    and the reference design (the per-MB kernel of the first slice):
+    every content of ``_motion_contents`` at every range and lam at
+    1088x1920, two contents at every range at the stress shapes, a few
+    hundred random pairs, and the range trap. Then the rows: the kernel's
+    time alone beside the reference design's, plain time, pixel-offsets
+    per SM clock and the bound at the best measured exact SAD sequence
+    rate."""
+    from vcp_tpu_torch.ops import motion, motion_cuda
+    from vcp_tpu_torch.tools import probe_motion
     errs = {True: 0, False: 0}          # by with_pred
-    for name, c, r in cases:
-        cur = torch.as_tensor(c, dtype=torch.int32, device=dev).contiguous()
-        ref = torch.as_tensor(r, dtype=torch.int32, device=dev).contiguous()
-        for sr, lam in ((8, 0), (8, 22), (Q_SR, 8)):
-            mv_p, _ = motion.full_search(cur, ref, sr, lam)
-            pred_p = motion.mc_luma(ref, mv_p, sr)
-            mv_k = motion_cuda.motion_search(cur, ref, sr, lam)
-            mv_k2, pred_k = motion_cuda.motion_search(cur, ref, sr, lam,
-                                                      with_pred=True)
-            e_only = max_abs_err((mv_k,), (mv_p,))
-            e_pred = max_abs_err((mv_k2, pred_k), (mv_p, pred_p))
-            log(f"  motion_search {name} sr={sr} lam={lam}: max_abs_err "
-                f"{e_pred} with pred, {e_only} search only")
-            errs[True] = max(errs[True], e_pred)
-            errs[False] = max(errs[False], e_only)
+    t0 = time.monotonic()
+    for hh, ww, contents, lams in (
+            (h, w, None, MOTION_LAMS),
+            *((sh, sw, ("shifted+noise", "checkerboard"), (22,))
+              for sh, sw in MOTION_SHAPES)):
+        for name, c, r in _motion_contents(hh, ww, 1):
+            if contents and name not in contents:
+                continue
+            cur = torch.as_tensor(c, dtype=torch.int32, device=dev)
+            ref = torch.as_tensor(r, dtype=torch.int32, device=dev)
+            worst = {True: 0, False: 0}
+            for sr in MOTION_SRS:
+                for lam in lams:
+                    e = _motion_errs(cur, ref, sr, lam)
+                    for k in e:
+                        worst[k] = max(worst[k], e[k])
+            log(f"  motion_search {hh}x{ww} {name}, sr {MOTION_SRS}, lam "
+                f"{lams}: max_abs_err {worst[True]} with pred, "
+                f"{worst[False]} search only (against plain and reference)")
+            for k in errs:
+                errs[k] = max(errs[k], worst[k])
     if errs[True] or errs[False]:
         raise AssertionError(f"motion_search disagrees (max err {errs})")
-    cur = torch.as_tensor(noisy_cur, dtype=torch.int32, device=dev)
-    ref = torch.as_tensor(noisy_ref, dtype=torch.int32, device=dev)
-    n_mb = (h // 16) * (w // 16)
+    n_rand = 300
+    bad = motion_random_pairs(dev, h, w, n_rand)
+    log(f"  motion_search: {n_rand} random pairs at {h}x{w} against the "
+        f"reference design: max_abs_err {bad} "
+        f"({time.monotonic() - t0:.1f} s for the checks)")
+    if bad:
+        raise AssertionError(f"motion_search disagrees with the reference "
+                             f"design on random pairs ({bad})")
+    check_motion_trap()
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rates = probe_motion.sequence_rates(dev)
+    names = [n for n, _ in probe_motion.SEQUENCES[:probe_motion.SAD_SEQUENCES]]
+    best_seq = max(names, key=rates.get)
+    cur, ref = probe_motion.test_planes(dev, h, w)
+    clocks = probe_motion.sm_clocks_mhz(
+        lambda: motion_cuda.motion_search(cur, ref, 8, 22))
+    per_clk = {k: probe_motion.per_sm_clock(v, n_sm, clocks["under_load"])
+               for k, v in rates.items()}
+    log(f"  SAD sequences, pixel-offsets per SM clock at "
+        f"{clocks['under_load']} MHz: {per_clk}")
+    big = probe_motion.test_planes(dev, *STRESS_SHAPES[-1])
     rows = []
-    for with_pred, sr, lam, name, line in (
-            (True, 8, 22, "motion_search", 207),
-            (False, Q_SR, 8, "motion_search_only", 225)):
-        ms = time_ms(lambda: motion_cuda.motion_search(
-            cur, ref, sr, lam, with_pred=with_pred), dev, reps)
+    for with_pred, sr, lam, name, line in MOTION_ROWS:
+        def kern(c=cur, r=ref):
+            return motion_cuda.motion_search(c, r, sr, lam, with_pred)
+
+        def old(c=cur, r=ref):
+            return motion_cuda.motion_search_ref(c, r, sr, lam, with_pred)
 
         def plain():
             mv = motion.full_search(cur, ref, sr, lam)[0]
             return motion.mc_luma(ref, mv, sr) if with_pred else mv
+        ms, ref_ms = probe_motion.device_ms(kern), probe_motion.device_ms(old)
         plain_ms = time_ms(plain, dev, max(1, reps // 10))
-        # cur, ref in; mv (and pred) out; sub, abs, add per pixel and offset
-        nbytes = (3 if with_pred else 2) * h * w * 4 + n_mb * 2 * 4
-        nops = n_mb * (2 * sr + 1) ** 2 * 256 * 3
-        bms, by = bound_ms(nbytes, nops)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "vcp_tpu_torch/csrc/motion_search.cu",
-                     "replaces": f"vcp_tpu/ops/motion_pallas.py:{line}",
-                     "max_abs_err": errs[with_pred], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                     "library_ms": None, "search_range": sr})
+        ms_big = probe_motion.device_ms(lambda: kern(*big))
+        ref_ms_big = probe_motion.device_ms(lambda: old(*big))
+        bnd = probe_motion.bound(h, w, sr, with_pred, rates[best_seq])
+
+        def po_clk(t, hh=h, ww=w):
+            return probe_motion.per_sm_clock(
+                probe_motion.work(hh, ww, sr) / (t * 1e-3), n_sm,
+                clocks["under_load"])
+        row = {"name": name, "route": "cuda",
+               "source": "vcp_tpu_torch/csrc/motion_search.cu",
+               "replaces": f"vcp_tpu/ops/motion_pallas.py:{line}",
+               "max_abs_err": errs[with_pred], "ms": ms,
+               "plain_ms": plain_ms, **bnd, "library_ms": None,
+               "ref_ms": ref_ms, "search_range": sr, "lam": lam,
+               "po_per_sm_clock": po_clk(ms),
+               "ref_po_per_sm_clock": po_clk(ref_ms),
+               "bound_sequence": best_seq,
+               "bound_po_per_sm_clock": per_clk[best_seq],
+               "sm_clock_mhz": clocks["under_load"],
+               "plan": motion_cuda.launch_plan(h, w, sr),
+               "ms_2160x3840": ms_big, "ref_ms_2160x3840": ref_ms_big,
+               "po_per_sm_clock_2160x3840": po_clk(ms_big,
+                                                   *STRESS_SHAPES[-1]),
+               "bound_ms_2160x3840": probe_motion.bound(
+                   *STRESS_SHAPES[-1], sr, with_pred,
+                   rates[best_seq])["bound_ms"]}
+        if not ms < ref_ms or not ms_big < ref_ms_big:
+            raise AssertionError(f"{name}: {ms:.4f} / {ms_big:.4f} ms, the "
+                                 f"reference design {ref_ms:.4f} / "
+                                 f"{ref_ms_big:.4f} ms")
+        if ms < row["bound_ms"] or ms_big < row["bound_ms_2160x3840"]:
+            raise AssertionError(f"{name}: a time below its bound: {row}")
+        rows.append(row)
     return rows
 
 
@@ -797,7 +962,8 @@ def main(argv: list[str]) -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.monotonic()
-    devmod.build_kernels()
+    # the kernels and the SAD sequence microbenchmark, one nvcc each
+    devmod.build_kernels(devmod.SOURCES + ("motion_probe.cu",))
     for src in devmod.SOURCES:
         devmod.kernel_lib(src)
     log(f"kernels built in {time.monotonic() - t0:.1f} s")
@@ -819,7 +985,14 @@ def main(argv: list[str]) -> int:
             f"{row['bound_by']})" + (
                 f", per-diagonal reference {row['diag_ms']:.4f} ms, "
                 f"{row['step_us']:.3f} us per step of {row['d_steps']}"
-                if "diag_ms" in row else ""))
+                if "diag_ms" in row else "") + (
+                f", reference design {row['ref_ms']:.4f} ms, "
+                f"{row['po_per_sm_clock']:.1f} pixel-offsets per SM clock "
+                f"(reference {row['ref_po_per_sm_clock']:.1f}, bound "
+                f"{row['bound_po_per_sm_clock']:.1f}); 2160x3840 "
+                f"{row['ms_2160x3840']:.4f} ms, reference "
+                f"{row['ref_ms_2160x3840']:.4f}, plan {row['plan']}"
+                if "ref_ms" in row else ""))
     log("phase 2b: the one-launch deblock kernels at shapes that stress "
         "the schedule, and against the per-diagonal reference")
     check_deblock_shapes(dev)

@@ -113,11 +113,12 @@ def build_kernels(sources=SOURCES) -> dict[str, str]:
 
 
 def kernel_lib(src: str) -> ctypes.CDLL:
-    """Loaded library of ``csrc/<src>`` (built on first use)."""
+    """Loaded library of ``csrc/<src>`` (built on first use; the first
+    kernel of ``SOURCES`` asked for builds them all)."""
     with _lock:
         lib = _loaded.get(src)
         if lib is None:
-            so = build_kernels()[src]
+            so = build_kernels(SOURCES if src in SOURCES else (src,))[src]
             lib = ctypes.CDLL(so)
             lib.vcp_error_string.restype = ctypes.c_char_p
             lib.vcp_error_string.argtypes = [ctypes.c_int]

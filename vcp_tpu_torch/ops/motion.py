@@ -2,7 +2,8 @@
 
 Port of the main-path subset of ``vcp_tpu/ops/motion.py``:
 ``full_search`` (full-pel exhaustive SAD search, the plain version of the
-``motion_search`` kernel in ``motion_cuda``), ``mc_luma`` (full-pel luma
+``motion_search`` kernel in ``motion_cuda``; ``full_search_split`` models
+how that kernel splits and merges the search), ``mc_luma`` (full-pel luma
 MC, the plain version of the kernel's fused prediction), ``mc_chroma_q``
 (1/8-pel bilinear chroma MC, spec 8.4.2.2.2) and the half-pel tools of
 the quality presets: ``half_planes`` (spec 8.4.2.2.1 6-tap planes),
@@ -61,6 +62,71 @@ def full_search(cur: torch.Tensor, ref: torch.Tensor, search_range: int,
         best_o = torch.where(better, torch.full_like(best_o, o), best_o)
     mv = torch.stack([best_o // side - sr, best_o % side - sr], dim=-1)
     return mv, best_cost
+
+
+SAD_GROUP = 4           # samples per packed word of the motion_search kernel
+
+
+def sad_keys(cost: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is the lexicographic order of (cost, offset
+    index), the tie rule of ``full_search``. The kernel's 64-bit key
+    (cost with its sign bit flipped in the high word, the index in the
+    low word) is this key plus 2^63, so both order alike."""
+    return cost.to(torch.int64) * (1 << 32) + index.to(torch.int64)
+
+
+def key_cost_index(key: torch.Tensor):
+    """(cost, offset index) of ``sad_keys`` keys."""
+    return key >> 32, key & 0xFFFFFFFF
+
+
+def full_search_split(cur: torch.Tensor, ref: torch.Tensor,
+                      search_range: int, lam: int = 4, run: int = 12,
+                      order=None):
+    """Plain model of how the ``motion_search`` kernel splits and merges
+    the search; equal to ``full_search``. No path calls it.
+
+    Each MB's offsets are cut into items of one dy and a run of ``run``
+    consecutive dx (the last run of a row is cut at the range: its dx
+    past 2 sr are computed on the padded window and dropped). An item's
+    SADs are sums over words of ``SAD_GROUP`` samples, as the kernel's
+    packed absolute differences form them; the item keeps the first
+    minimum of its run, as (cost, index) key, and the items are merged by
+    the lexicographic minimum. ``order`` is the merge order of an MB's
+    items (indices dy * nruns + j); by default the kernel's item order,
+    although the kernel's shared-memory atomics merge in whatever order
+    the items finish. Returns (mv, best_cost) as ``full_search``."""
+    hb, w = cur.shape
+    n_mby, n_mbx = hb // 16, w // 16
+    sr = search_range
+    side = 2 * sr + 1
+    nruns = -(-side // run)
+    span = run * nruns                     # dx slots, the cut tail included
+    dev = cur.device
+    ref_pad = pad_edge(ref.to(torch.int32), sr, sr, sr, sr + span - side)
+    cur_w = cur.to(torch.int32).reshape(n_mby, 16, n_mbx, 16 // SAD_GROUP,
+                                        SAD_GROUP)
+    sad = torch.empty((n_mby, n_mbx, side, span), dtype=torch.int32,
+                      device=dev)
+    for dy in range(side):
+        for dx in range(span):
+            win = ref_pad[dy:dy + hb, dx:dx + w].reshape(cur_w.shape)
+            words = (cur_w - win).abs().sum(dim=4, dtype=torch.int32)
+            sad[:, :, dy, dx] = words.sum(dim=(1, 3), dtype=torch.int32)
+    dys = torch.arange(side, device=dev)[:, None]
+    dxs = torch.arange(span, device=dev)[None, :]
+    cost = sad + lam * ((dxs - sr).abs() + (dys - sr).abs()).to(torch.int32)
+    keys = sad_keys(cost, dys * side + dxs)
+    keys = torch.where(dxs < side, keys, torch.iinfo(torch.int64).max)
+    items = keys.reshape(n_mby, n_mbx, side, nruns, run).amin(dim=-1) \
+        .reshape(n_mby, n_mbx, side * nruns)
+    best = torch.full((n_mby, n_mbx), torch.iinfo(torch.int64).max,
+                      dtype=torch.int64, device=dev)
+    for i in (range(side * nruns) if order is None else order):
+        best = torch.minimum(best, items[..., i])
+    best_cost, best_o = key_cost_index(best)
+    mv = torch.stack([best_o // side - sr, best_o % side - sr], dim=-1)
+    return mv.to(torch.int32), best_cost.to(torch.int32)
 
 
 def mc_luma(ref: torch.Tensor, mv: torch.Tensor, search_range: int,
