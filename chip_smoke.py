@@ -16,20 +16,30 @@ kernels are also held against it at shapes that stress their schedule
 (one MB row, one MB column, 2160p) and, over several hundred random
 frames, half of them beside a busy second stream, against the
 per-diagonal reference kernels.
-Then it drives the port's two main paths end to end through ``python -m
+Then it drives the port's main paths end to end through ``python -m
 vcp_tpu_torch.cli encode`` on ``cuda``, each with the kernels' launch
 counters zeroed just before and read just after:
 
 * the speed shape, ``-p h264-nvenc`` (full-pel ME with the fused
   search + prediction kernel, row-pattern IDR);
-* the half-pel quality shape, ``-c:v libx264 -preset medium -bf 0``
-  (half-pel ME, adaptive 8x8 transform, RD intra IDR), once as it comes
-  (pyramid search) and once with ``VCP_HIER_ME=0``, which sends the
-  full-pel search through the search-only kernel.
+* the half-pel quality shape without B pictures, ``-c:v libx264 -preset
+  medium -bf 0`` (half-pel ME, adaptive 8x8 transform, RD intra IDR),
+  once as it comes (pyramid search) and once with ``VCP_HIER_ME=0``,
+  which sends the full-pel search through the search-only kernel;
+* the shipped quality preset, ``-p h264-cpu`` (the same tools plus 2 B
+  pictures, partitioned P anchors and intra MBs in P pictures), as it
+  comes and with ``VCP_HIER_ME=0`` (the B pictures' searches through the
+  search-only kernel, the anchors' through the exhaustive partition
+  search);
+* the speed shape with B pictures, ``-c:v h264_nvenc -preset p4 -bf 2``
+  (the fused kernel on the B pictures and the +-24 anchors).
 
-It checks each MP4, checks that a GOP's NAL units are byte-identical
-between ``cuda`` and ``cpu`` (plain versions) on both paths, and prints
-per-kernel times beside their bounds. Any failed phase raises, so the
+It checks each MP4 (with the composition offsets of B streams), checks
+that the quality paths used the tools they add, checks that a GOP's NAL
+units are byte-identical between ``cuda`` and ``cpu`` (plain versions)
+on the speed path, the quality path without B pictures and a B GOP of
+``h264-cpu``, profiles those GOPs, and prints per-kernel times beside
+their bounds. Any failed phase raises, so the
 exit code is nonzero; without a CUDA device it exits 2 and prints no
 result. ``--kernels-only`` stops after the kernel checks (a short first
 run after a kernel change) and prints no result line. Imports nothing of
@@ -59,6 +69,10 @@ Q_ARGS = ("-c:v libx264 -preset medium -bf 0 -b:v 10M "
 Q_FRAMES = 12
 Q_CUT = 8
 Q_SR = 12                    # its search range (effort 5)
+B_FRAMES = 12                # frames of the paths with B pictures
+B_CUT = 8
+NVENC_B_ARGS = ("-c:v h264_nvenc -preset p4 -bf 2 -b:v 10M "
+                "-movflags +faststart")
 DEVICE = "cuda"              # the device every main path is driven on
 STRESS_SHAPES = ((16, 1920), (1088, 16), (2160, 3840))
 PSNR_FLOOR_DB = 35.0         # recon luma PSNR floor of the first GOP
@@ -677,7 +691,26 @@ def synth_frames(h: int, w: int, n: int, cut: int, seed: int = 0):
     return frames
 
 
-def check_mp4(path: str, n_frames: int, idrs: list[int]) -> None:
+def gop_cts(n: int, b: int) -> list[int]:
+    """Composition offsets (frames) of one GOP of n frames in decode
+    order: anchors every b+1 display frames and on the last one, B
+    pictures after the anchor that follows them."""
+    if b == 0 or n <= 2:
+        return [0] * n
+    anchors = list(range(0, n, b + 1))
+    if anchors[-1] != n - 1:
+        anchors.append(n - 1)
+    order = [0]
+    for prev, a in zip(anchors, anchors[1:]):
+        order += [a, *range(prev + 1, a)]
+    return [disp - dec + 1 for dec, disp in enumerate(order)]
+
+
+def check_mp4(path: str, n_frames: int, idrs: list[int],
+              cts: list[int] | None = None) -> None:
+    """Top-level boxes, sample count, sample entry, sync samples and the
+    ctts box: present with these per-sample composition offsets (frames)
+    when ``cts`` is given, absent otherwise."""
     import struct
     from vcp_tpu_torch.codec import mp4
     with open(path, "rb") as fh:
@@ -700,8 +733,18 @@ def check_mp4(path: str, n_frames: int, idrs: list[int]) -> None:
             for i in range(n_sync)]
     if sync != idrs:
         raise AssertionError(f"sync samples {sync}, expected IDRs {idrs}")
+    box = mp4.find_box(buf, stbl + [b"ctts"])
+    got = None
+    if box is not None:
+        ps, _ = box
+        got, dur = [], 1000                     # ticks per frame at 30 fps
+        for i in range(struct.unpack_from(">I", buf, ps + 4)[0]):
+            n, off = struct.unpack_from(">II", buf, ps + 8 + 8 * i)
+            got += [off // dur] * n
+    if got != cts:
+        raise AssertionError(f"composition offsets {got}, expected {cts}")
     log(f"  mp4: boxes {[t.decode() for t in top]}, {count} samples, "
-        f"sync samples {sync}")
+        f"sync samples {sync}, composition offsets {got}")
 
 
 def synth_frames_subpel(h: int, w: int, n: int, cut: int, seed: int = 1):
@@ -739,14 +782,37 @@ def launch_counters() -> dict:
     }
 
 
+def _count(seen: dict, key: str, n) -> None:
+    seen[key] = seen.get(key, 0) + int(n)
+
+
 @contextlib.contextmanager
 def observe_encoder(seen: dict):
     """While active, record what the CLI's encoder does without changing
     it: the encoder objects (for ``stage_s``), the share of i8 MBs of
-    every IDR, and the t8 MBs and half-pel vectors of every P slice."""
-    from vcp_tpu_torch.codec.h264 import encoder, entropy
+    every IDR, the t8 MBs, half-pel vectors, intra MBs and partitioned
+    MBs of every P slice, the MBs of each B mode and the B MBs without
+    residual of every B slice, and per P anchor the intra overlay's gate
+    and the host seconds of the partition search and of the overlay (its
+    dispatch: the device runs behind)."""
+    from vcp_tpu_torch.codec.h264 import (bframe, encoder, entropy,
+                                          intra_rd, pframe)
+    from vcp_tpu_torch.ops import motion
     real_enc = encoder.H264Encoder
     real_i, real_p = entropy.write_islice, entropy.write_pslice
+    real_b = bframe.write_bslice
+    timed = [(motion, "full_search_parts"), (motion, "hier_search_parts"),
+             (intra_rd, "intra_overlay_pass"), (pframe, "_overlay_gate")]
+    real_timed = [getattr(m, k) for m, k in timed]
+
+    def timer(key, fn):
+        def call(*a, **kw):
+            t = time.monotonic()
+            out = fn(*a, **kw)
+            seen.setdefault(key, []).append(
+                out if key == "_overlay_gate" else time.monotonic() - t)
+            return out
+        return call
 
     class Observed(real_enc):
         def __init__(self, *a, **kw):
@@ -761,24 +827,43 @@ def observe_encoder(seen: dict):
 
     def pslice(*a, **kw):
         d = kw["data"]
-        seen["t8_mbs"] = seen.get("t8_mbs", 0) + (
-            int(d["t8"].sum()) if "t8" in d else 0)
-        seen["half_pel_mvs"] = seen.get("half_pel_mvs", 0) + int(
-            ((d["mv"] & 3) == 2).any(axis=-1).sum())
+        _count(seen, "t8_mbs", d["t8"].sum() if "t8" in d else 0)
+        _count(seen, "half_pel_mvs", ((d["mv"] & 3) == 2).any(axis=-1).sum())
+        _count(seen, "p_intra_mbs", d["intra"].sum() if "intra" in d else 0)
+        _count(seen, "p_part_mbs",
+               (d["parts"] > 0).sum() if "parts" in d else 0)
         return real_p(*a, **kw)
+
+    def bslice(*a, **kw):
+        d = kw["data"]
+        for m in range(3):
+            _count(seen, f"b_mode{m}_mbs", (d["mode"] == m).sum())
+        _count(seen, "b_no_residual_mbs", (
+            (d["luma"] == 0).all(axis=(-1, -2))
+            & (d["cb_dc"] == 0).all(-1) & (d["cr_dc"] == 0).all(-1)
+            & (d["cb_ac"] == 0).all(axis=(-1, -2))
+            & (d["cr_ac"] == 0).all(axis=(-1, -2))).sum())
+        return real_b(*a, **kw)
 
     encoder.H264Encoder = Observed
     entropy.write_islice, entropy.write_pslice = islice, pslice
+    bframe.write_bslice = bslice
+    for (m, k), fn in zip(timed, real_timed):
+        setattr(m, k, timer(k, fn))
     try:
         yield seen
     finally:
         encoder.H264Encoder = real_enc
         entropy.write_islice, entropy.write_pslice = real_i, real_p
+        bframe.write_bslice = real_b
+        for (m, k), fn in zip(timed, real_timed):
+            setattr(m, k, fn)
 
 
 def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
                   idrs: list[int], must_launch: tuple[str, ...],
-                  env: dict | None = None) -> tuple[dict, dict]:
+                  env: dict | None = None,
+                  cts: list[int] | None = None) -> tuple[dict, dict]:
     """One CLI encode on cuda with every launch count set to 0 just before
     and read just after; returns (launches by kernel, what was seen)."""
     from vcp_tpu_torch import cli
@@ -809,7 +894,7 @@ def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
     if missing:
         raise AssertionError(f"kernels not launched on the main path "
                              f"{label}: {missing}")
-    check_mp4(dst, len(frames), idrs)
+    check_mp4(dst, len(frames), idrs, cts)
     return launches, seen
 
 
@@ -826,6 +911,24 @@ def check_quality_tools(label: str, seen: dict) -> None:
         raise AssertionError("no P MB chose the 8x8 transform")
     if not seen["half_pel_mvs"] > 0:
         raise AssertionError("no vector has a half-pel phase")
+
+
+def check_b_tools(label: str, seen: dict) -> None:
+    """The B-GOP quality path used what it adds: intra MBs in some P
+    slice, partitioned MBs, all three B modes, B MBs without residual."""
+    keys = ("p_intra_mbs", "p_part_mbs", "b_mode0_mbs", "b_mode1_mbs",
+            "b_mode2_mbs", "b_no_residual_mbs")
+    log(f"  {label}: " + ", ".join(f"{k} {seen.get(k, 0)}" for k in keys))
+    log(f"  {label}: per P anchor: overlay gate {seen.get('_overlay_gate')}"
+        ", host s of the overlay "
+        f"{[round(t, 3) for t in seen.get('intra_overlay_pass', [])]}, of "
+        "the partition search (pyramid "
+        f"{[round(t, 3) for t in seen.get('hier_search_parts', [])]}, "
+        "exhaustive "
+        f"{[round(t, 3) for t in seen.get('full_search_parts', [])]})")
+    missing = [k for k in keys if not seen.get(k, 0) > 0]
+    if missing:
+        raise AssertionError(f"{label}: no MB counted in {missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -845,8 +948,9 @@ def check_devices(label: str, frames, ffargs: str) -> None:
         t0 = time.monotonic()
         out[dev] = enc.encode_gop(frames)
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
-        log(f"  {label} GOP (IDR + {len(frames) - 1} P) on {dev}: "
-            f"{time.monotonic() - t0:.3f} s, qp {cfg.qp} ({stages})")
+        log(f"  {label} GOP ({len(frames)} frames, B pictures "
+            f"{cfg.bframes}) on {dev}: {time.monotonic() - t0:.3f} s, qp "
+            f"{cfg.qp} ({stages})")
         if dev == devices[0]:
             ry = enc.recon_planes[0].astype(np.float64)
             mse = float(np.mean((ry - frames[-1][0].astype(np.float64))
@@ -897,7 +1001,6 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
     Fails unless every deblock wrapper call of the GOP shows as exactly
     one ``deblock_wave`` device kernel and no per-diagonal reference
     kernel ran."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from vcp_tpu_torch.codec.args import parse_encode_args
     from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
@@ -918,21 +1021,32 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
         calls += sum(getattr(fn, attr) for fn, attr in counters)
+    t_read = t0 + wall                  # the trace is read from here on
+    # Kineto's own JSON export and one json.load: building torch's
+    # per-event Python objects (prof.events()) took minutes for a GOP of
+    # a million launches
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)["traceEvents"]
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = by_name.setdefault(e.name, [0, 0.0])
+    for e in trace:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            acc = by_name.setdefault(e["name"], [0, 0.0])
             acc[0] += 1
-            acc[1] += e.time_range.elapsed_us() / 1e3
+            acc[1] += e.get("dur", 0) / 1e3
+    del trace
     busy = sum(v[1] for v in by_name.values())
     n = sum(v[0] for v in by_name.values())
     if n == 0:
         raise AssertionError("the profiler saw no device activity")
     stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
-    log(f"  profiled {label} GOP (IDR + {len(frames) - 1} P): wall "
+    log(f"  profiled {label} GOP ({len(frames)} frames): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms over {n} device "
         f"kernels/copies (idle share {1 - busy / (wall * 1e3):.3f}); "
-        f"{stages}")
+        f"{stages}; trace stopped and read in "
+        f"{time.monotonic() - t_read:.1f} s")
     for name, (cnt, ms) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][1])[:10]:
         log(f"    {ms:9.3f} ms {cnt:6d}x  {name[:90]}")
@@ -957,6 +1071,7 @@ def main(argv: list[str]) -> int:
     from vcp_tpu_torch import native
     from vcp_tpu_torch.config import BUILTIN_PRESETS
 
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     card = gpu_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -998,14 +1113,17 @@ def main(argv: list[str]) -> int:
     check_deblock_shapes(dev)
     race_hunt(dev, HP, W)
     race_hunt(dev, *STRESS_SHAPES[-1], n_random=16, n_repeat=4)
+    log(f"  kernel phases done at {time.monotonic() - t_start:.1f} s")
     torch.cuda.synchronize()
     if "--kernels-only" in argv:
         print("kernels only: main paths not driven, no result")
         return 0
 
-    log("phase 3: main paths, cli encode on cuda")
+    log(f"phase 3: main paths, cli encode on cuda "
+        f"({time.monotonic() - t_start:.1f} s)")
     frames = synth_frames(H, W, N_FRAMES, SCENE_CUT)
     qframes = synth_frames_subpel(H, W, Q_FRAMES, Q_CUT)
+    bq = synth_frames_subpel(H, W, B_FRAMES, B_CUT)
     q_cli = [f"--ffmpeg-args={Q_ARGS}"]
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1022,15 +1140,38 @@ def main(argv: list[str]) -> int:
             ("motion_search_only", "deblock_fast", "deblock_general"),
             env={"VCP_HIER_ME": "0"})
         check_quality_tools("medium-bf0-exhaustive", seen)
+        # GOPs of B_CUT and B_FRAMES - B_CUT frames, 2 B pictures
+        b_cts = gop_cts(B_CUT, 2) + gop_cts(B_FRAMES - B_CUT, 2)
+        for label, env, kernels in (
+                ("h264-cpu", None, ("deblock_fast", "deblock_general")),
+                ("h264-cpu-exhaustive", {"VCP_HIER_ME": "0"},
+                 ("motion_search_only", "deblock_fast", "deblock_general"))):
+            by_path[label], seen = run_main_path(
+                label, bq, tmp, ["-p", "h264-cpu"], [0, B_CUT], kernels,
+                env=env, cts=b_cts)
+            check_quality_tools(label, seen)
+            check_b_tools(label, seen)
+        by_path["nvenc-bf2"], _ = run_main_path(
+            "nvenc-bf2", synth_frames(H, W, B_FRAMES, B_CUT), tmp,
+            [f"--ffmpeg-args={NVENC_B_ARGS}"], [0, B_CUT],
+            ("motion_search", "deblock_fast", "deblock_general"), cts=b_cts)
 
-    log("phase 4: one GOP, cuda vs cpu")
+    log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
+        "s)")
     check_devices("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
     with scoped_env({"VCP_HIER_ME": "0"}):
         check_devices("medium-bf0-exhaustive", qframes[:3], Q_ARGS)
+        # IDR, P3, B1, B2
+        check_devices("h264-cpu-exhaustive", bq[:4],
+                      BUILTIN_PRESETS["h264-cpu"])
     check_pyramid_pstep(qframes)
-    log("phase 5: device time of one GOP on cuda (torch.profiler)")
+    log("phase 5: device time of one GOP on cuda (torch.profiler; "
+        f"{time.monotonic() - t_start:.1f} s)")
     profile_gop("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
     profile_gop("medium-bf0-exhaustive", qframes[:3], Q_ARGS, cpu_ops=False,
+                env={"VCP_HIER_ME": "0"})
+    profile_gop("h264-cpu-exhaustive", bq[:4],
+                BUILTIN_PRESETS["h264-cpu"], cpu_ops=False,
                 env={"VCP_HIER_ME": "0"})
 
     for row in rows:
@@ -1041,6 +1182,7 @@ def main(argv: list[str]) -> int:
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms by "
             f"{row['bound_by']}), launches {row['launches']} "
             f"{row['launches_by_path']}")
+    log(f"all phases done at {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

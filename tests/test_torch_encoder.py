@@ -108,20 +108,24 @@ def test_default_device_raises_without_cuda(monkeypatch, frames, tmp_path):
 
 
 @pytest.mark.parametrize("preset,env,match", [
-    ("h264-cpu", {}, "B pictures.*A1a"),
+    ("h264-cpu", {"VCP_CABAC": "0"}, "CAVLC.*A4"),
     ("h264-nvenc", {"VCP_CABAC": "0"}, "CAVLC"),
-    ("h264-nvenc", {"VCP_BFRAMES": "2"}, "B pictures"),
+    ("h264-nvenc", {"VCP_BFRAMES": "2", "VCP_PARTS": "1"},
+     "partitions below effort 5.*A1b"),
     ("h265-nvenc", {}, "HEVC"),
     ("copy", {}, "copy preset"),
     (f"={QUALITY}", {"VCP_T8": "0"}, "VCP_T8=0.*A1c"),
     (f"={QUALITY}", {"VCP_RDI": "0"}, "without RD intra.*A1c"),
     (f"={QUALITY}", {"VCP_CABAC": "0"}, "CAVLC"),
-    ("=-c:v libx264 -preset slow", {}, "B pictures"),
+    ("=-c:v libx264 -preset slower", {}, "effort 7 .quarter-pel.*A1b"),
     ("=-c:v libx264 -preset slower -bf 0", {}, "effort 7 .quarter-pel.*A1b"),
-    ("=-c:v libx264 -preset veryslow", {}, "B pictures.*effort 8"),
+    ("=-c:v libx264 -preset veryslow", {}, "effort 8 .quarter-pel.*A1b"),
     ("=-c:v h264_nvenc -preset p4", {"VCP_T8": "1"}, "8x8 transform below"),
     ("=-c:v h264_nvenc -preset p4", {"VCP_RDI": "1"}, "RD intra below"),
-    ("=-c:v h264_nvenc -preset p4", {"VCP_PARTS": "1"}, "partitions"),
+    ("=-c:v h264_nvenc -preset p4 -bf 2", {"VCP_PARTS": "1"},
+     "partitions below effort 5"),
+    ("=-c:v h264_nvenc -preset p4 -bf 2", {"VCP_INTRA_P": "1"},
+     "intra overlay without partitions.*A1c"),
 ])
 def test_settings_outside_the_slice_raise(preset, env, match, frames,
                                           tmp_path, monkeypatch):

@@ -1,17 +1,24 @@
 """H.264 encoder orchestration: device math + host entropy + mux.
 
-Port of the main path of ``vcp_tpu/codec/h264/encoder.py``: the non-B,
-single-device GOP coder with dense uploads of the padded source planes.
-Per GOP the IDR and every P chunk (8/4/2/1 frames) are dispatched to the
+Port of the single-device GOP coders of ``vcp_tpu/codec/h264/encoder.py``
+with dense uploads of the padded source planes. Without B pictures, per
+GOP the IDR and every P chunk (8/4/2/1 frames) are dispatched to the
 device first, chained on the device-resident recon; then each chunk's
 compacted entropy rows are fetched and written by the host CABAC slice
-writers in order. Two settings run: the speed shape (effort <= 4:
-full-pel ME, 4x4 transform, row-pattern I16 IDR) and the half-pel
-quality shape without B pictures (efforts 5 and 6 with ``-bf 0``:
-pyramid or exhaustive full-pel search refined to half-pel, adaptive 8x8
-transform, RD intra IDR with I16 and i8 MBs, High profile).
-Settings outside these raise ``NotImplementedError`` naming the ROADMAP
-item that will port them.
+writers in order. With B pictures (``_encode_gop_b``) the GOP is an IDR,
+P anchors every bframes+1 display frames (the per-frame P step of
+``pframe``: partitions and the intra overlay at the quality presets) and
+non-reference B pictures between them (``gop_ops.encode_bframe``),
+dispatched in decode order with each frame's entropy inputs packed into
+one int16 buffer on the device, then fetched and written in that order.
+The settings that run: the speed shape (effort <= 4: full-pel ME, 4x4
+transform, row-pattern I16 IDR), with or without B pictures, and the
+half-pel quality shape (efforts 5 and 6: pyramid or exhaustive
+full-pel search refined to half-pel, adaptive 8x8 transform, RD intra
+IDR with I16 and i8 MBs, High profile), by default with 2 B pictures,
+partitioned P anchors and intra MBs in P pictures. Settings outside
+these raise ``NotImplementedError`` naming the ROADMAP item that will
+port them.
 """
 
 from __future__ import annotations
@@ -69,6 +76,8 @@ class EncoderConfig:
     transform8: bool = False       # High-profile adaptive 8x8 transform
     parts: bool = False            # P_8x8 sub-partitions (quality presets)
     rd_intra: bool | None = None   # per-MB RD I16 mode selection
+    intra_p: bool | None = None    # intra MBs inside P pictures (None =
+                                   # on for the CABAC quality shape)
     params: EncodeParams | None = None   # original preset args (rate control)
 
     def use_rd_intra(self) -> bool:
@@ -77,6 +86,17 @@ class EncoderConfig:
         if self.rd_intra is not None:
             return self.rd_intra
         return self.effort >= 5
+
+    def use_intra_p(self) -> bool:
+        """The intra overlay in P pictures (VCP_INTRA_P overrides). It
+        needs the partitioned CABAC path and the 8x8-transform PPS (the
+        overlay emits I_NxN / i8 MBs)."""
+        if os.environ.get("VCP_INTRA_P"):
+            return os.environ["VCP_INTRA_P"] != "0"
+        if self.intra_p is not None:
+            return self.intra_p
+        return (self.effort >= 5 and self.cabac and self.parts
+                and self.transform8)
 
     @classmethod
     def from_params(cls, params: EncodeParams, width: int, height: int,
@@ -113,17 +133,15 @@ class EncoderConfig:
 
 
 def check_supported(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for settings outside the two ported
-    shapes: effort <= 4 without 8x8 transform, partitions or RD intra,
-    and efforts 5-6 (half-pel ME) with the 8x8 transform and RD intra;
-    both CABAC and without B pictures. (Partitions do not reach the
-    chunked GOP path, so at efforts 5-6 the flag changes nothing.)"""
+    """Raise NotImplementedError for settings outside the ported shapes:
+    effort <= 4 without 8x8 transform, partitions, intra overlay or RD
+    intra; efforts 5-6 (half-pel ME) with the 8x8 transform and RD
+    intra; both CABAC, with or without B pictures. (Partitions and the
+    overlay reach only the B-GOP coder's P anchors, as in vcp_tpu; the
+    chunked P path has neither.)"""
     todo = []
     if not cfg.cabac:
         todo.append("CAVLC / VCP_CABAC=0 (ROADMAP A4)")
-    if cfg.bframes > 0:
-        todo.append("B pictures (ROADMAP A1a: B-GOP, partitions, intra "
-                    "overlay)")
     if cfg.effort >= 7:
         todo.append(f"effort {cfg.effort} (quarter-pel ME; ROADMAP A1b)")
     elif cfg.effort >= 5:
@@ -137,10 +155,15 @@ def check_supported(cfg: EncoderConfig) -> None:
     else:
         if cfg.transform8:
             todo.append("8x8 transform below effort 5 (ROADMAP A1c)")
-        if cfg.parts:
-            todo.append("partitions (ROADMAP A1a)")
+        if cfg.parts and cfg.bframes > 0:
+            todo.append("partitions below effort 5 (full-pel partitions "
+                        "need quarter-pel MC; ROADMAP A1b)")
         if cfg.use_rd_intra():
             todo.append("RD intra below effort 5 (ROADMAP A1c)")
+    if cfg.bframes > 0 and cfg.use_intra_p() and not (
+            cfg.parts and cfg.transform8):
+        todo.append("the intra overlay without partitions or the 8x8 "
+                    "transform (ROADMAP A1c)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -162,20 +185,30 @@ class H264Encoder:
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        # the adaptive 8x8 transform needs the High profile
-        self.sp = headers.SeqParams(
-            width=cfg.width, height=cfg.height,
-            **({"profile_idc": 100} if cfg.transform8 else {}))
+        # the adaptive 8x8 transform needs the High profile; B pictures
+        # need Main at least, poc_type 0 and both anchors in the DPB
+        if cfg.bframes > 0:
+            self.sp = headers.SeqParams(
+                width=cfg.width, height=cfg.height,
+                profile_idc=100 if cfg.transform8 else 77, poc_type=0,
+                num_ref_frames=2)
+        else:
+            self.sp = headers.SeqParams(
+                width=cfg.width, height=cfg.height,
+                **({"profile_idc": 100} if cfg.transform8 else {}))
         self.pp = headers.PicParams(init_qp=26, cabac=cfg.cabac,
                                     transform_8x8=cfg.transform8)
         self.idr_count = 0
         self._frame_num = 0
         self._recon = None          # (y, u, v) uint8 planes on the device
-        # host seconds per stage, summed over GOPs: the IDR's and the P
-        # chunks' dispatch (pad, pack, upload, enqueue device work), fetch
-        # (device->host copies, which wait for the device) and entropy
-        # (unpack + CABAC slice writers)
-        self.stage_s = {"idr": 0.0, "p": 0.0, "fetch": 0.0, "entropy": 0.0}
+        # host seconds per stage, summed over GOPs: the IDR's, the P
+        # chunks' or P anchors' and the B pictures' dispatch (pad, pack,
+        # upload, enqueue device work; the P anchors' include the intra
+        # overlay gate's device->host read), fetch (device->host copies,
+        # which wait for the device) and entropy (unpack + CABAC slice
+        # writers)
+        self.stage_s = {"idr": 0.0, "p": 0.0, "b": 0.0, "fetch": 0.0,
+                        "entropy": 0.0}
         self.rc = None
         if cfg.params is not None and cfg.params.rate_mode() == "abr":
             from .ratecontrol import RateController
@@ -197,10 +230,16 @@ class H264Encoder:
         arr = np.require(arr, requirements=("C", "W"))
         return torch.from_numpy(arr).to(self.device)
 
-    def encode_gop(self, frames: list) -> list[tuple[bytes, bool]]:
+    def encode_gop(self, frames: list) -> list[tuple]:
         """Encode a list of (y, u, v) frames, the first as IDR and the
-        rest as P; returns [(annexb access unit, is_idr)]."""
+        rest as P; returns [(annexb access unit, is_idr)]. With
+        ``cfg.bframes`` > 0 and more than two frames the GOP is coded as
+        IDR + P anchors + B pictures in decode order, and each item gains
+        a third element: the composition-time offset in frames (for the
+        MP4 ctts box)."""
         cfg = self.cfg
+        if cfg.bframes > 0 and len(frames) > 2:
+            return self._encode_gop_b(frames)
         qp = self.rc.gop_qp() if self.rc else cfg.qp
         qpc = chroma_qp(qp, self.pp.chroma_qp_index_offset)
         qp_i = idr_qp(qp) if len(frames) > 1 else qp
@@ -288,6 +327,164 @@ class H264Encoder:
             self.rc.update(len(frames), sum(len(nal) for nal, _ in out))
         return out
 
+    def _rd_or_row_iframe(self, planes, qp_i: int, qpc_i: int):
+        """Dense IDR on the device: the RD intra frame (I16 / i8 per MB)
+        at the quality presets, else the row-pattern I16 frame. Returns
+        (device dict, entropy keys)."""
+        keys = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+        if self.cfg.use_rd_intra():
+            from . import intra_rd
+            return (intra_rd.encode_iframe_rd8(*planes, qp_i, qpc_i,
+                                               self.cfg.deblock),
+                    keys + ("modes", "cmodes", "i8", "i8_modes", "i8_luma"))
+        from .frame_ops import encode_iframe
+        return encode_iframe(*planes, qp_i, qpc_i, self.cfg.deblock), keys
+
+    def _encode_gop_b(self, frames: list) -> list[tuple]:
+        """IDR + P anchors every bframes+1 display positions + non-reference
+        B pictures between them, in decode order (I, P1, B.., P2, B..;
+        libx264 -bf N with b-adapt 0 and no B pyramid). Returns (nal,
+        is_idr, cts_offset) triples, cts_offset = display - decode + 1 in
+        frames.
+
+        Phase 1 dispatches the whole decode-order device chain, packing
+        each frame's entropy inputs into one flat int16 buffer on the
+        device; phase 2 copies each buffer to the host once and runs the
+        slice writers in order. (vcp_tpu also ships only the nonzero
+        16-word chunks of each buffer and uploads only the changed
+        source tiles; both change only what crosses the bus, not the
+        stream, and are not ported yet: ROADMAP A3.)"""
+        from . import bframe, pframe
+        cfg = self.cfg
+        qp = self.rc.gop_qp() if self.rc else cfg.qp
+        # B pictures are non-reference: a deeper QP offset
+        qp_b = min(51, qp + int(os.environ.get("VCP_QPB_OFFSET", "4")))
+        qp_i = idr_qp(qp)
+        off = self.pp.chroma_qp_index_offset
+        qpc, qpc_b, qpc_i = (chroma_qp(q, off) for q in (qp, qp_b, qp_i))
+        sr = search_range_for_effort(cfg.effort)
+        # anchors span bframes+1 display frames of motion: a wider window
+        # (capped; the search is O(sr^2))
+        sr_a = min(24, sr * (cfg.bframes + 1))
+        subpel = subpel_for_effort(cfg.effort)
+        intra_p = cfg.use_intra_p()
+        b, n = cfg.bframes, len(frames)
+        nby, nbx = self.sp.mb_height, self.sp.mb_width
+        anchors = list(range(0, n, b + 1))
+        if anchors[-1] != n - 1:
+            anchors.append(n - 1)
+
+        # per-frame packed layouts; every field fits int16 (levels peak
+        # near 8.6k for 8x8 at QP 0, MVs are bounded by the search window)
+        pfields = [("luma", (nby, nbx, 16, 16)), ("cb_dc", (nby, nbx, 4)),
+                   ("cb_ac", (nby, nbx, 4, 16)), ("cr_dc", (nby, nbx, 4)),
+                   ("cr_ac", (nby, nbx, 4, 16))]
+        if cfg.parts:
+            pfields += [("mv8", (2 * nby, 2 * nbx, 2)), ("parts", (nby, nbx))]
+        else:
+            pfields += [("mv", (nby, nbx, 2))]
+        if cfg.transform8:
+            pfields += [("t8", (nby, nbx))]
+        if intra_p:
+            pfields += [("intra", (nby, nbx)), ("i8", (nby, nbx)),
+                        ("imodes", (nby, nbx)), ("icmodes", (nby, nbx)),
+                        ("luma_dc", (nby, nbx, 16)),
+                        ("i8_modes", (nby, nbx, 4))]
+        bfields = [("mv0", (nby, nbx, 2)), ("mv1", (nby, nbx, 2)),
+                   ("mode", (nby, nbx))] + pfields[:5]
+
+        def pack(o, fields):
+            return torch.cat([o[k].to(torch.int16).reshape(-1)
+                              for k, _ in fields])
+
+        def unpack(buf, fields):
+            data, at = {}, 0
+            for k, shape in fields:
+                cnt = int(np.prod(shape))
+                data[k] = buf[at:at + cnt].astype(np.int32).reshape(shape)
+                at += cnt
+            return data
+
+        def upload(fi):
+            return [self._upload(p) for p in self._pad(*frames[fi])]
+
+        # ---- phase 1: dispatch the IDR, the anchors and the Bs ----
+        t0 = time.perf_counter()
+        iout, ikeys = self._rd_or_row_iframe(upload(0), qp_i, qpc_i)
+        ifields = [(k, tuple(iout[k].shape)) for k in ikeys]
+        itok = pack(iout, ifields)
+        prev_a = 0
+        prev_recon = (iout["recon_y"], iout["recon_u"], iout["recon_v"])
+        t1 = time.perf_counter()
+        self.stage_s["idr"] += t1 - t0
+        segs = []
+        for k, a in enumerate(anchors[1:], start=1):
+            t0 = time.perf_counter()
+            pout = pframe.encode_pframe(
+                *upload(a), *prev_recon, qp, qpc, search_range=sr_a,
+                deblock=cfg.deblock, subpel=subpel, t8=cfg.transform8,
+                parts=cfg.parts, intra_mbs=intra_p)
+            ptok = pack(pout, pfields)
+            cur_recon = (pout["recon_y"], pout["recon_u"], pout["recon_v"])
+            t1 = time.perf_counter()
+            self.stage_s["p"] += t1 - t0
+            btoks = [pack(gop_ops.encode_bframe(
+                *upload(d), *prev_recon, *cur_recon, qp_b, qpc_b, sr,
+                lam_for_qp(qp_b), subpel, cfg.deblock), bfields)
+                for d in range(prev_a + 1, a)]
+            self.stage_s["b"] += time.perf_counter() - t1
+            segs.append((k, a, prev_a, ptok, btoks))
+            prev_a, prev_recon = a, cur_recon
+
+        # ---- phase 2: fetch + host entropy, decode order ----
+        out: list[tuple] = []
+
+        def fetch(tok, fields):
+            t = time.perf_counter()
+            data = unpack(tok.cpu().numpy(), fields)
+            self.stage_s["fetch"] += time.perf_counter() - t
+            return data
+
+        def emit(nal, is_idr, disp):
+            # the decode index of this sample is len(out)
+            out.append((nal, is_idr, disp - len(out) + 1))
+
+        idata = fetch(itok, ifields)
+        t = time.perf_counter()
+        emit(entropy.write_islice(
+            self.sp, self.pp, frame_num=0,
+            idr_pic_id=self.idr_count % 65536, qp=qp_i, data=idata,
+            deblock=cfg.deblock, poc_lsb=0), True, 0)
+        self.idr_count += 1
+        self.stage_s["entropy"] += time.perf_counter() - t
+
+        for k, a, seg_prev, ptok, btoks in segs:
+            pdata = fetch(ptok, pfields)
+            t = time.perf_counter()
+            if cfg.parts:
+                pdata["mv"] = pdata["mv8"][::2, ::2]
+            emit(entropy.write_pslice(
+                self.sp, self.pp, frame_num=k, qp=qp, data=pdata,
+                deblock=cfg.deblock, poc_lsb=2 * a), False, a)
+            col_zero, col_safe = _colocated(pdata, cfg.parts, intra_p)
+            self.stage_s["entropy"] += time.perf_counter() - t
+            for i, d in enumerate(range(seg_prev + 1, a)):
+                bdata = fetch(btoks[i], bfields)
+                t = time.perf_counter()
+                bdata["col_zero"] = col_zero
+                if col_safe is not None:
+                    bdata["col_safe"] = col_safe
+                emit(bframe.write_bslice(
+                    self.sp, self.pp, frame_num=k + 1, qp=qp_b, data=bdata,
+                    deblock=cfg.deblock, poc_lsb=2 * d), False, d)
+                self.stage_s["entropy"] += time.perf_counter() - t
+
+        self._recon = prev_recon
+        self._frame_num = len(anchors)
+        if self.rc:
+            self.rc.update(n, sum(len(s[0]) for s in out))
+        return out
+
     @property
     def recon_planes(self):
         """Last reconstructed (unpadded) planes as numpy, for PSNR."""
@@ -297,6 +494,25 @@ class H264Encoder:
         return (y[: self.cfg.height, : self.cfg.width],
                 u[: self.cfg.height // 2, : self.cfg.width // 2],
                 v[: self.cfg.height // 2, : self.cfg.width // 2])
+
+
+def _colocated(pdata: dict, parts: bool, intra_p: bool):
+    """(col_zero, col_safe) of a future anchor (RefPicList1[0]) for the B
+    slices' spatial-direct derivation: colZeroFlag of an inter MB whose
+    vector is within +-1 quarter-pel. With partitioned anchors colZero
+    is per 8x8 block: the MB grid is all-four-zero, and col_safe masks
+    out the MBs whose four blocks disagree (no B_Skip there, the spec
+    derivation would split inside the MB); intra blocks are never
+    colZero. col_safe is None for anchors without partitions."""
+    if not parts:
+        return (np.abs(pdata["mv"]) <= 1).all(-1), None
+    z8 = (np.abs(pdata["mv8"]) <= 1).all(-1)
+    if intra_p:
+        z8 &= ~np.repeat(np.repeat(pdata["intra"].astype(bool), 2, 0), 2, 1)
+    nby, nbx = pdata["parts"].shape
+    zq = z8.reshape(nby, 2, nbx, 2)
+    col_zero = zq.all(axis=(1, 3))
+    return col_zero, col_zero | ~zq.any(axis=(1, 3))
 
 
 SCENE_CUT_THRESHOLD = 28.0   # mean abs luma diff (8x-downsampled)
@@ -313,7 +529,8 @@ def _is_scene_cut(prev_y: np.ndarray, cur_y: np.ndarray) -> bool:
 def encode_stream(frames, cfg: EncoderConfig, deadline: float | None = None,
                   on_frame=None, device: str = "cuda"):
     """Encode an iterable of (y, u, v) uint8 planes → (sps, pps, samples)
-    with samples [(annexb_au, is_idr)]. Frames are grouped into GOPs at
+    with samples [(annexb_au, is_idr)], or (annexb_au, is_idr,
+    cts_offset) in streams with B pictures. Frames are grouped into GOPs at
     ``cfg.gop_size`` and at scene cuts; the deadline is checked between
     GOPs."""
     enc = H264Encoder(cfg, device=device)
@@ -348,10 +565,11 @@ def mux_mp4(path: str, sps: bytes, pps: bytes, samples, width: int,
     dur = fps_den * 1000
     tr = mp4mod.VideoTrack(codec="h264", width=width, height=height,
                            timescale=fps_num * 1000, sps=[sps], pps=[pps])
-    for au, is_idr in samples:
+    for s in samples:
+        cts = s[2] if len(s) > 2 else 0   # frames; B streams carry 3-tuples
         tr.samples.append(mp4mod.Sample(
-            data=mp4mod.annexb_to_length_prefixed(au),
-            duration=dur, is_sync=is_idr))
+            data=mp4mod.annexb_to_length_prefixed(s[0]),
+            duration=dur, is_sync=s[1], cts_offset=cts * dur))
     w.add_track(tr)
     w.write(path, faststart=faststart)
 

@@ -3,11 +3,13 @@
 Copies of ``vcp_tpu``'s native CABAC routes: ``write_islice`` for an IDR
 of I16x16 MBs, with the row pattern or with per-MB modes, or of I16x16
 mixed with I_NxN / transform-8x8 MBs (``vcp_tpu/codec/h264/entropy.py``
-with ``cabac=True``), and ``write_pslice`` for a P slice of P_L0_16x16 +
+with ``cabac=True``), and ``write_pslice`` for a P slice
+(``vcp_tpu/codec/h264/pframe.py`` with ``cabac=True``): P_L0_16x16 +
 P_Skip MBs, with the per-MB transform_size_8x8 flag when the PPS turns
-the 8x8 transform on (``vcp_tpu/codec/h264/pframe.py`` with
-``cabac=True``, no partitions, no intra MBs). Both run the C++ writers
-in ``vcp_tpu_torch.native`` and wrap the RBSP into an Annex-B NAL.
+the 8x8 transform on, partitioned MBs (16x8 / 8x16 / P_8x8) on the 8x8
+MV grid, and intra MBs (I16x16 / I_NxN) among them. All run the C++
+writers in ``vcp_tpu_torch.native`` and wrap the RBSP into an Annex-B
+NAL.
 """
 
 from __future__ import annotations
@@ -81,43 +83,112 @@ def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
     return _nal(lib, out, int(n), H.NAL_SLICE_IDR, 3)
 
 
+def _any(data: dict, key: str) -> bool:
+    a = data.get(key)
+    return a is not None and bool(np.any(a))
+
+
+def _u8(data: dict, key: str, default=None) -> np.ndarray | None:
+    a = data.get(key, default)
+    return None if a is None else np.ascontiguousarray(a, np.uint8)
+
+
+def _ptr(a: np.ndarray | None, kind=_I32P):
+    """ctypes pointer to ``a`` (NULL for None); the caller keeps ``a``."""
+    return kind() if a is None else a.ctypes.data_as(kind)
+
+
+def mv8_grid_xy(data: dict, n_mby: int, n_mbx: int):
+    """(mv8_xy (2nMBy, 2nMBx, 2) [x, y] grid, ptype (nMBy, nMBx) int32)
+    from an entropy dict: the 8x8-grid field "mv8" when present, else the
+    per-MB "mv" replicated. The partition type (0 = 16x16, 1 = 16x8, 2 =
+    8x16, 3 = P_8x8) is canonicalised from the MV field itself, the
+    cheapest mb_type that expresses it (MC depends only on the per-8x8
+    vectors, so the decoder rebuilds the same grid either way)."""
+    mv8 = data.get("mv8")
+    if mv8 is None:
+        mv = np.asarray(data["mv"])
+        mv8 = np.repeat(np.repeat(mv, 2, 0), 2, 1)
+        ptype = np.zeros((n_mby, n_mbx), np.int32)
+    else:
+        mv8 = np.asarray(mv8)
+        quads = mv8.reshape(n_mby, 2, n_mbx, 2, 2)  # (mby, sy, mbx, sx, 2)
+        uniform = (quads == quads[:, :1, :, :1]).all(axis=(1, 3, 4))
+        rows_u = (quads[:, :, :, 0] == quads[:, :, :, 1]).all(
+            axis=-1).all(axis=1)                    # both rows left==right
+        cols_u = (quads[:, 0] == quads[:, 1]).all(
+            axis=-1).all(axis=-1)                   # both cols top==bottom
+        ptype = np.where(uniform, 0,
+                         np.where(rows_u, 1, np.where(cols_u, 2, 3)))
+    return (_xy(mv8), np.ascontiguousarray(ptype, np.int32))
+
+
+def _xy(mv) -> np.ndarray:
+    """[dy, dx] vectors -> the writers' [x, y] order, int32."""
+    mv = np.asarray(mv)
+    return np.ascontiguousarray(np.stack([mv[..., 1], mv[..., 0]], axis=-1),
+                                np.int32)
+
+
+def levels(data: dict) -> list[np.ndarray]:
+    """The level arrays every inter slice writer takes, in its order."""
+    return [np.ascontiguousarray(data[k], np.int32)
+            for k in ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")]
+
+
 def write_pslice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
                  qp: int, data: dict, deblock: bool = False,
                  poc_lsb: int = 0) -> bytes:
-    """One CABAC P slice NAL from an ``unpack_sparse_chunk`` dict (mv in
-    quarter-pel [dy, dx]; ``active`` marks the MBs present in the dense
-    arrays, the rest are P_Skip). When the PPS has the 8x8 transform on,
-    every MB with luma residual codes its transform_size_8x8 flag from
-    the optional ``t8`` grid (absent = all 4x4)."""
+    """One CABAC P slice NAL from an ``unpack_sparse_chunk`` dict or the
+    dict of ``pframe.encode_pframe`` (mv in quarter-pel [dy, dx];
+    ``active`` marks the MBs present in the dense arrays, the rest are
+    P_Skip). When the PPS has the 8x8 transform on, every MB with luma
+    residual codes its transform_size_8x8 flag from the optional ``t8``
+    grid (absent = all 4x4). As in ``vcp_tpu``, a frame with intra MBs
+    ("intra", with "i8", I16 modes "imodes", chroma modes "icmodes", I16
+    DC levels "luma_dc", i8 block modes "i8_modes"; an intra MB's "luma"
+    row holds its I16 AC blocks or its four i8 scans) goes to the intra
+    writer, one with partitioned MBs ("parts", vectors "mv8" on the 8x8
+    grid) to the partition writer, the rest to the 16x16 writer."""
     if not pp.cabac:
         raise ValueError("pp.cabac must match the slice entropy mode")
     lib = native.get_lib()
     n_mby, n_mbx = sp.mb_height, sp.mb_width
-    mv = np.asarray(data["mv"])
-    mv_xy = np.ascontiguousarray(
-        np.stack([mv[..., 1], mv[..., 0]], axis=-1), np.int32)
-    arrs = [np.ascontiguousarray(data[k], np.int32)
-            for k in ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")]
-    act = data.get("active")
-    act = None if act is None else np.ascontiguousarray(act, np.uint8)
     cap = n_mby * n_mbx * 2048 + 4096
     out = np.empty(cap, np.uint8)
     head = (n_mby, n_mbx, qp, pp.init_qp, sp.log2_max_frame_num, frame_num,
             0 if deblock else 1,
-            sp.log2_max_poc_lsb if sp.poc_type == 0 else 0, poc_lsb,
-            _U8P() if act is None else act.ctypes.data_as(_U8P))
-    tail = (*[a.ctypes.data_as(_I32P) for a in (mv_xy, *arrs)],
-            out.ctypes.data_as(_U8P), cap)
-    if pp.transform_8x8:
-        t8 = data.get("t8")
-        t8 = np.ascontiguousarray(
-            np.zeros((n_mby, n_mbx), bool) if t8 is None else t8, np.uint8)
-        n = lib.vcp_write_pslice_cabac_t8(
-            *head, t8.ctypes.data_as(_U8P), *tail)
+            sp.log2_max_poc_lsb if sp.poc_type == 0 else 0, poc_lsb)
+    lv = levels(data)
+    tail = (*[_ptr(a) for a in lv], out.ctypes.data_as(_U8P), cap)
+    act, t8 = _u8(data, "active"), _u8(data, "t8")
+    if _any(data, "intra") or _any(data, "parts"):
+        mv8_xy, parts = mv8_grid_xy(data, n_mby, n_mbx)
+        grid = (_ptr(mv8_xy), _ptr(parts))
+        if _any(data, "intra"):
+            flags = [_u8(data, k) for k in ("intra", "i8")]
+            ints = [np.ascontiguousarray(data[k], np.int32)
+                    for k in ("imodes", "icmodes", "luma_dc", "i8_modes")]
+            n = lib.vcp_write_pslice_cabac_intra(
+                *head, _ptr(t8, _U8P), int(pp.transform_8x8),
+                *[_ptr(a, _U8P) for a in flags], *[_ptr(a) for a in ints],
+                *grid, *tail)
+        else:
+            n = lib.vcp_write_pslice_cabac_parts(
+                *head, _ptr(act, _U8P), _ptr(t8, _U8P),
+                int(pp.transform_8x8), *grid, *tail)
     else:
-        if data.get("t8") is not None:
-            raise ValueError("t8 macroblocks need pp.transform_8x8")
-        n = lib.vcp_write_pslice_cabac(*head, *tail)
+        mv_xy = _xy(data["mv"])
+        if pp.transform_8x8:
+            if t8 is None:
+                t8 = np.zeros((n_mby, n_mbx), np.uint8)
+            n = lib.vcp_write_pslice_cabac_t8(
+                *head, _ptr(act, _U8P), _ptr(t8, _U8P), _ptr(mv_xy), *tail)
+        else:
+            if t8 is not None:
+                raise ValueError("t8 macroblocks need pp.transform_8x8")
+            n = lib.vcp_write_pslice_cabac(*head, _ptr(act, _U8P),
+                                           _ptr(mv_xy), *tail)
     if n < 0:
         raise RuntimeError("native cabac pslice buffer overflow")
     return _nal(lib, out, int(n), H.NAL_SLICE_NONIDR, 2)

@@ -10,7 +10,10 @@ the P-chunk loop (``lax.scan`` becomes a Python loop over device tensors,
 each frame predicting from the previous recon), and the sparse packing of
 each chunk's entropy inputs into compacted int16 rows, plus the sparse
 IDR packing. The host-side unpackers turn the fetched rows back into the
-dense dicts the slice writers take.
+dense dicts the slice writers take. The B step (``encode_bframe``:
+search against both anchors, the frame-dominant vector of each list, an
+RD mode decision per MB, two-list deblock) shares the search, chroma MC
+and residual code with the P step.
 
 Packed per-MB int16 words:
   [mv 2 | cb_dc 4 | cr_dc 4 | flags 1 | pad 1 | luma 16x16 | cb_ac 4x16
@@ -89,14 +92,17 @@ def decimate_keep_mask(z_zz: torch.Tensor, extra: int = 0) -> torch.Tensor:
 
 
 def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
-                    qp: int, qpc: int, t8: bool = False):
+                    qp: int, qpc: int, decimate_extra: int = 0,
+                    t8: bool = False):
     """Inter residual: transform/quantize/reconstruct against prediction
-    planes. Returns (z_luma (nMBy, nMBx, 256), cb_dc, cb_ac, cr_dc,
-    cr_ac, recon_y, recon_u, recon_v, nz4 (H/4, W/4) bool, t8 grid (nMBy,
-    nMBx) bool, all False when ``t8`` is off). ``t8`` enables the
-    High-profile adaptive 8x8 luma transform: both transforms are
-    computed and each MB picks by rate-distortion cost (SSD + lambda2 *
-    bits estimate, see ``rdcost``)."""
+    planes; shared by the P and the B step. Returns (z_luma (nMBy, nMBx,
+    256), cb_dc, cb_ac, cr_dc, cr_ac, recon_y, recon_u, recon_v, nz4
+    (H/4, W/4) bool, t8 grid (nMBy, nMBx) bool, all False when ``t8`` is
+    off). ``decimate_extra`` raises the dead-MB threshold (B pictures,
+    which nothing references, drop marginal residuals more readily).
+    ``t8`` enables the High-profile adaptive 8x8 luma transform: both
+    transforms are computed and each MB picks by rate-distortion cost
+    (SSD + lambda2 * bits estimate, see ``rdcost``)."""
     h, w = cur_y.shape
     n_mby, n_mbx = h // 16, w // 16
     diff = cur_y - pred_y
@@ -105,7 +111,7 @@ def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
     z_zz = _zigzag(_blk_order(zb))                    # (nMBy, nMBx, 16, 16)
 
     # dead-MB decimation (applies to entropy AND recon identically)
-    keep = decimate_keep_mask(z_zz)
+    keep = decimate_keep_mask(z_zz, decimate_extra)
     z_zz = z_zz * keep[..., None, None]
     z = z * _rep2(keep, 4)[..., None, None]
 
@@ -123,7 +129,8 @@ def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
             .permute(0, 2, 1, 3, 4).reshape(n_mby, n_mbx, 4, 64)
         # dead-MB decimation on the 8x8 path too (16-coefficient chunks
         # of the scans keep the run structure the score models)
-        keep8 = decimate_keep_mask(scan_mb.reshape(n_mby, n_mbx, 16, 16))
+        keep8 = decimate_keep_mask(scan_mb.reshape(n_mby, n_mbx, 16, 16),
+                                   decimate_extra)
         scan_mb = scan_mb * keep8[..., None, None]
         z8k = t8ops.unzigzag8(
             scan_mb.reshape(n_mby, n_mbx, 2, 2, 64)
@@ -181,11 +188,11 @@ def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
             recon_y, recon_u, recon_v, nz4, t8_grid)
 
 
-def _pstep_core(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int,
-                qpc: int, sr: int, lam: int, subpel: int = 1,
-                t8: bool = False):
-    """P step before deblocking. Returns (packed int16 (nMB * MB_WORDS,),
-    recon planes, nz4 grid, quarter-pel mv grid, t8 grid).
+def _search_mc_luma(cur_y, ref_y, sr: int, lam: int, subpel: int):
+    """Whole-frame motion search + luma MC against one reference. Returns
+    (mvq quarter-pel (nMBy, nMBx, 2), pred_y, mcu) where ``mcu(g)``
+    motion-compensates one frame-uniform quarter-pel vector ``g`` (2,)
+    against the same reference (the B step's dominant-MV candidates).
 
     ``subpel`` 0 is full-pel ME (the search kernel also writes the
     prediction); 1 takes full-pel vectors from the pyramid search (wide
@@ -193,7 +200,6 @@ def _pstep_core(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int,
     kernel, and refines them to half-pel with the fused refine + MC over
     the half-pel planes of the padded reference."""
     h, w = cur_y.shape
-    n_mby, n_mbx = h // 16, w // 16
     if subpel == 1:
         if use_hier_me(sr):
             mv_full = mops.hier_search(cur_y, ref_y, sr, lam)
@@ -201,21 +207,37 @@ def _pstep_core(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int,
             mv_full = motion_search(cur_y.contiguous(), ref_y.contiguous(),
                                     sr, lam, with_pred=False)
         pad = sr + 6
+        margin = pad - 3
         planes = torch.stack(mops.half_planes(
             mops.pad_edge(ref_y, pad, pad, pad, pad)))
-        mv, pred_y = mops.refine_half_mc(cur_y, planes, mv_full, lam,
-                                         pad - 3)
-    elif subpel == 0:
+        mv, pred_y = mops.refine_half_mc(cur_y, planes, mv_full, lam, margin)
+        return mv, pred_y, lambda g: mops.mc_luma_uniform(planes, g, margin,
+                                                          0, h, w)
+    if subpel == 0:
         mv_full, pred_y = motion_search(cur_y.contiguous(),
                                         ref_y.contiguous(), sr, lam,
                                         with_pred=True)
-        mv = mv_full * 4
-    else:
-        raise NotImplementedError(
-            f"subpel {subpel}: quarter-pel ME is not ported yet (ROADMAP "
-            "A1b)")
-    pred_u = mops.mc_chroma_q(ref_u, mv, sr // 2 + 2)
-    pred_v = mops.mc_chroma_q(ref_v, mv, sr // 2 + 2)
+        return mv_full * 4, pred_y, lambda g: mops.mc_luma(
+            ref_y, torch.div(g, 4, rounding_mode="floor")
+            .expand(mv_full.shape), sr)
+    raise NotImplementedError(
+        f"subpel {subpel}: quarter-pel ME is not ported yet (ROADMAP A1b)")
+
+
+def _mc_chroma_pair(ref_u, ref_v, mv, sr: int, bs: int = 16):
+    return (mops.mc_chroma_q(ref_u, mv, sr // 2 + 2, bs=bs),
+            mops.mc_chroma_q(ref_v, mv, sr // 2 + 2, bs=bs))
+
+
+def _pstep_core(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int,
+                qpc: int, sr: int, lam: int, subpel: int = 1,
+                t8: bool = False):
+    """P step before deblocking. Returns (packed int16 (nMB * MB_WORDS,),
+    recon planes, nz4 grid, quarter-pel mv grid, t8 grid)."""
+    h, w = cur_y.shape
+    n_mby, n_mbx = h // 16, w // 16
+    mv, pred_y, _ = _search_mc_luma(cur_y, ref_y, sr, lam, subpel)
+    pred_u, pred_v = _mc_chroma_pair(ref_u, ref_v, mv, sr)
     (z_luma, cb_dc, cb_ac, cr_dc, cr_ac,
      recon_y, recon_u, recon_v, nz4, t8g) = _residual_recon(
         cur_y, cur_u, cur_v, pred_y, pred_u, pred_v, qp, qpc, t8=t8)
@@ -263,6 +285,150 @@ def encode_pchunk(ys, us, vs, ref_y, ref_u, ref_v, qp: int, qpc: int,
                                     t8=t8)
         out.append(packed)
     return torch.stack(out), ry, ru, rv
+
+
+def luma_trial(cur_y, pred, qp: int):
+    """Per-MB luma trial of the quantized 4x4 path against one
+    prediction: (SSD of the recon, level-bit proxy, count of coded 4x4
+    blocks), float32 (``rdcost``)."""
+    h, w = cur_y.shape
+    n_mby, n_mbx = h // 16, w // 16
+    zt = tf.quant4(tf.fdct4(tf.to_blocks4(cur_y - pred)), qp, intra=False)
+    rec = torch.clamp(pred + tf.from_blocks4(tf.idct4(tf.dequant4(zt, qp))),
+                      0, 255)
+    ssd = rdcost.ssd(cur_y.reshape(n_mby, 16, n_mbx, 16),
+                     rec.reshape(n_mby, 16, n_mbx, 16), (1, 3))
+    zmb = zt.reshape(n_mby, 4, n_mbx, 4, 16)
+    nzblk = (zmb != 0).any(dim=-1).sum(dim=(1, 3)).to(torch.float32)
+    return ssd, rdcost.level_bits(zmb, (1, 3, 4)), nzblk
+
+
+def dominant_mv(mv: torch.Tensor, snap: int) -> torch.Tensor:
+    """The frame-dominant vector (2,) of an MV grid: per component the
+    lower median of the MBs' values, sorted[(n-1)//2] (the tie rule of
+    ``jnp.quantile(..., 0.5, method="nearest")``; ``torch.quantile``
+    rounds half to even and differs for even n), floored to a multiple of
+    ``snap``."""
+    flat = mv.reshape(-1, 2).to(torch.float32)
+    med = torch.kthvalue(flat, (flat.shape[0] - 1) // 2 + 1, dim=0).values
+    return torch.div(med.to(torch.int32), snap, rounding_mode="floor") * snap
+
+
+def encode_bframe(cur_y, cur_u, cur_v, r0y, r0u, r0v, r1y, r1u, r1v,
+                  qp: int, qpc: int, sr: int, lam: int, subpel: int = 1,
+                  deblock: bool = False) -> dict:
+    """One B picture against the two enclosing anchor recons (L0 = past,
+    L1 = future). Each MB picks B_L0 / B_L1 / B_Bi_16x16 with its own
+    searched vectors, or the frame-uniform candidate (each list's
+    dominant vector; L0 alone or bi, one choice per frame), or that
+    candidate with no residual (B_Skip material), by rate-distortion cost
+    (SSD + lambda2 * bits proxy, ``rdcost``). Bi-prediction is the
+    unweighted (p0 + p1 + 1) >> 1 (spec 8.4.2.3.2). B pictures are not
+    references: the recon is returned for PSNR only.
+
+    Returns mv0 / mv1 (nMBy, nMBx, 2) quarter-pel, mode (nMBy, nMBx) with
+    0 = L0 / 1 = L1 / 2 = Bi, the zig-zagged level arrays and the uint8
+    recon planes."""
+    cur_y, cur_u, cur_v, r0y, r0u, r0v, r1y, r1u, r1v = (
+        a.to(torch.int32)
+        for a in (cur_y, cur_u, cur_v, r0y, r0u, r0v, r1y, r1u, r1v))
+    h, w = cur_y.shape
+    n_mby, n_mbx = h // 16, w // 16
+
+    mv0, p0y, mc0 = _search_mc_luma(cur_y, r0y, sr, lam, subpel)
+    mv1, p1y, mc1 = _search_mc_luma(cur_y, r1y, sr, lam, subpel)
+    pby = (p0y + p1y + 1) >> 1
+
+    # the uniform-MV candidate: per list the frame-dominant vector,
+    # snapped to the sub-pel grid in use; regions that adopt one shared
+    # vector collapse to skip runs at entropy time
+    snap = 4 if subpel == 0 else 2
+    g0, g1 = dominant_mv(mv0, snap), dominant_mv(mv1, snap)
+    pu0 = mc0(g0)
+    pu1 = mc1(g1)
+    pub = (pu0 + pu1 + 1) >> 1
+
+    lam2 = rdcost.lam2_for_qp(qp)
+
+    def cand_cost(pred):
+        ssd, bits, _ = luma_trial(cur_y, pred, qp)
+        return ssd + lam2 * bits
+
+    c0 = cand_cost(p0y) + lam2 * (rdcost.mv_bits(mv0) + 3.0)
+    c1 = cand_cost(p1y) + lam2 * (rdcost.mv_bits(mv1) + 3.0)
+    cbi = cand_cost(pby) + lam2 * (rdcost.mv_bits(mv0)
+                                   + rdcost.mv_bits(mv1) + 5.0)
+    # one uniform mode for the whole frame (L0 or bi); its vectors cost
+    # ~nothing, since in-region mvds collapse to the prediction
+    cu0 = cand_cost(pu0)
+    cub = cand_cost(pub)
+    use_ub = cub.sum(dtype=torch.float64) < cu0.sum(dtype=torch.float64)
+    pu = torch.where(use_ub, pub, pu0)
+    cu = torch.where(use_ub, cub, cu0) + lam2 * 1.0
+
+    best_exp = torch.minimum(cbi, torch.minimum(c0, c1))
+    # the uniform prediction with the residual forced to zero (~1 bit)
+    c_skip = rdcost.ssd(cur_y.reshape(n_mby, 16, n_mbx, 16),
+                        pu.reshape(n_mby, 16, n_mbx, 16), (1, 3)) \
+        + lam2 * 1.0
+    skip_pick = c_skip <= torch.minimum(cu, best_exp)
+    pick_u = (cu <= best_exp) | skip_pick
+    mode = torch.where(cbi <= torch.minimum(c0, c1), 2,
+                       torch.where(c1 < c0, 1, 0)).to(torch.int32)
+    mode = torch.where(pick_u, torch.where(use_ub, 2, 0), mode) \
+        .to(torch.int32)
+    mv0 = torch.where((pick_u & (mode != 1))[..., None], g0, mv0)
+    mv1 = torch.where((pick_u & (mode != 0))[..., None], g1, mv1)
+
+    mode_px = _rep2(mode, 16)
+    pred_y = torch.where(_rep2(pick_u, 16), pu,
+                         torch.where(mode_px == 0, p0y,
+                                     torch.where(mode_px == 1, p1y, pby)))
+    p0u, p0v = _mc_chroma_pair(r0u, r0v, mv0, sr)
+    p1u, p1v = _mc_chroma_pair(r1u, r1v, mv1, sr)
+    mode_c = _rep2(mode, 8)
+
+    def sel_c(a, b):
+        return torch.where(mode_c == 0, a,
+                           torch.where(mode_c == 1, b, (a + b + 1) >> 1))
+
+    pred_u = sel_c(p0u, p1u)
+    pred_v = sel_c(p0v, p1v)
+
+    (z_luma, cb_dc, cb_ac, cr_dc, cr_ac,
+     recon_y, recon_u, recon_v, nz4, _t8g) = _residual_recon(
+        cur_y, cur_u, cur_v, pred_y, pred_u, pred_v, qp, qpc,
+        decimate_extra=3)
+
+    # skip-forced MBs drop their residual (recon = prediction)
+    keep = ~skip_pick[..., None]
+    z_luma, cb_dc, cb_ac, cr_dc, cr_ac = (
+        a * keep for a in (z_luma, cb_dc, cb_ac, cr_dc, cr_ac))
+    recon_y = torch.where(_rep2(skip_pick, 16), pred_y, recon_y)
+    recon_u = torch.where(_rep2(skip_pick, 8), pred_u, recon_u)
+    recon_v = torch.where(_rep2(skip_pick, 8), pred_v, recon_v)
+    nz4 = nz4 & ~_rep2(skip_pick, 4)
+
+    if deblock:
+        from ...ops import deblock as dbf
+        qp_mb = torch.full((n_mby, n_mbx), qp, dtype=torch.int32,
+                           device=cur_y.device)
+        intra = torch.zeros((n_mby, n_mbx), dtype=torch.bool,
+                            device=cur_y.device)
+        use = torch.stack([mode != 1, mode != 0], dim=-1)
+        recon_y, recon_u, recon_v = dbf.deblock_frame(
+            recon_y, recon_u, recon_v, qp_mb, intra, nz4, (mv0, mv1, use),
+            no_strong=True, qp_scalar=qp)
+
+    return {
+        "mv0": mv0, "mv1": mv1, "mode": mode,
+        "luma": z_luma.reshape(n_mby, n_mbx, 16, 16),
+        "cb_dc": cb_dc, "cb_ac": cb_ac.reshape(n_mby, n_mbx, 4, 16),
+        "cr_dc": cr_dc, "cr_ac": cr_ac.reshape(n_mby, n_mbx, 4, 16),
+        "recon_y": recon_y.to(torch.uint8),
+        "recon_u": recon_u.to(torch.uint8),
+        "recon_v": recon_v.to(torch.uint8),
+    }
 
 
 def _flag_words(flags_f: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,9 @@ from .frame_ops import _blk_order, _zigzag
 # transform flag and a 6-bin CBP but its mode bits ride in the block costs
 I16_OVERHEAD_BITS = 7.0
 I8_OVERHEAD_BITS = 9.0
+# extra mb_type prefix bin + lost-skip opportunity for intra inside a P
+# slice
+P_INTRA_EXTRA_BITS = 2.0
 
 # intra_chroma_pred_mode ue(v) bit cost per mode 0..3
 _CHROMA_UE_BITS = np.array([1.0, 3.0, 3.0, 5.0], np.float32)
@@ -382,6 +385,149 @@ def _scatter(plane, y0, x0, blk, ar) -> None:
           x0[:, None, None] + ar[None, None, :]] = blk
 
 
+def _i8_trial(py, mg, cur, y0, x0, mbyc, mbxc, valid, n_mbx: int, h: int,
+              qp: int, lam2: float):
+    """I_NxN trial of one diagonal's MBs: the four 8x8 blocks in raster
+    order, each predicting from ``py`` as the previous block left it
+    (each block's winner is written into ``py`` in place; invalid lanes
+    write into the sink rows below the frame). ``mg`` is the 8x8-granular
+    grid of published i8 modes (-1 = none) for the mode prediction.
+    Returns (modes (L, 4) int32, scans (L, 4, 64), recon (L, 16, 16),
+    summed block cost (L,))."""
+    dev = py.device
+    a16 = torch.arange(16, device=dev)
+    a8 = torch.arange(8, device=dev)
+    b_modes, b_z, b_rec, b_cost = [], [], [], []
+    for b8 in range(4):
+        oy, ox = 8 * (b8 // 2), 8 * (b8 % 2)
+        r0 = y0 + oy
+        c0 = x0 + ox
+        avt_b = (r0 > 1) & valid
+        avl_b = (c0 > 1) & valid
+        if b8 == 1:
+            avtr_b = avt_b & (mbxc < n_mbx - 1)
+        elif b8 == 3:
+            avtr_b = torch.zeros_like(avt_b)
+        else:
+            avtr_b = avt_b
+        t_raw = py[(r0 - 1)[:, None], c0[:, None] + a16[None, :]]
+        le_raw = py[r0[:, None] + a8[None, :], (c0 - 1)[:, None]]
+        m_raw = py[r0 - 1, c0 - 1]
+        # prev-mode prediction (spec 8.3.1.1 min rule, -1 -> DC)
+        gy = 2 * mbyc + b8 // 2
+        gx = 2 * mbxc + b8 % 2
+        if b8 in (0, 2):
+            a_m = torch.where(gx > 0, mg[gy, (gx - 1).clamp_min(0)], -1)
+        else:
+            a_m = b_modes[b8 - 1]
+        if b8 in (0, 1):
+            b_m = torch.where(gy > 0, mg[(gy - 1).clamp_min(0), gx], -1)
+        else:
+            b_m = b_modes[b8 - 2]
+        pred_m = torch.minimum(torch.where(a_m >= 0, a_m, 2),
+                               torch.where(b_m >= 0, b_m, 2))
+        bm, z64, rec8, bc = _i8_block_trial(
+            cur[:, oy:oy + 8, ox:ox + 8], t_raw, le_raw, m_raw, avt_b,
+            avl_b, avt_b & avl_b, avtr_b, qp, lam2, pred_m)
+        _scatter(py, torch.where(valid, r0, h + 1), c0, rec8, a8)
+        b_modes.append(bm)
+        b_z.append(z64)
+        b_rec.append(rec8)
+        b_cost.append(bc)
+    rec = torch.cat([torch.cat([b_rec[0], b_rec[1]], dim=2),
+                     torch.cat([b_rec[2], b_rec[3]], dim=2)], dim=1)
+    return (torch.stack(b_modes, dim=1), torch.stack(b_z, dim=1), rec,
+            b_cost[0] + b_cost[1] + b_cost[2] + b_cost[3])
+
+
+def _publish_modes(mg, valid, mbyc, mbxc, vals, n_mby: int) -> None:
+    """Write each lane's four 8x8 mode values (L, 4) into ``mg`` in place
+    (invalid lanes into the two sink rows)."""
+    dy = constant("mg_dy", [0, 0, 1, 1], mg.device)
+    dx = constant("mg_dx", [0, 1, 0, 1], mg.device)
+    gy0 = torch.where(valid, 2 * mbyc, 2 * n_mby)
+    mg[gy0[:, None] + dy[None, :], (2 * mbxc)[:, None] + dx[None, :]] = vals
+
+
+def _chroma_trial(pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc: int,
+                  lam2c: float):
+    """Joint Cb / Cr intra mode trial of one diagonal's MBs (one mode for
+    both planes). Returns (mode (L,) int32, its cost (L,), levels (cb_dc
+    (L, 4), cb_ac (L, 64), cr_dc, cr_ac) zig-zagged, recon_u, recon_v
+    (L, 8, 8), block origins (c0, cx0) in the bordered planes)."""
+    dev = pu.device
+    a8 = torch.arange(8, device=dev)
+    c0 = mbyc * 8 + 1
+    cx0 = mbxc * 8 + 1
+    topu, leftu, cornu = _gather_edges(pu, c0, cx0, a8)
+    topv, leftv, cornv = _gather_edges(pv, c0, cx0, a8)
+    udc, uac, urec, ussd, ubits = _chroma_mode_trials(
+        umb[mbyc, mbxc], topu, leftu, cornu, avt, avl, qpc)
+    vdc, vac, vrec, vssd, vbits = _chroma_mode_trials(
+        vmb[mbyc, mbxc], topv, leftv, cornv, avt, avl, qpc)
+    ue_bits = constant("chroma_ue_bits", _CHROMA_UE_BITS, dev, torch.float32)
+    callowed = torch.stack([torch.ones_like(avt), avl, avt, avt & avl])
+    ccost = torch.where(
+        callowed, ussd + vssd + lam2c * (ubits + vbits + ue_bits[:, None]),
+        torch.inf)
+    cmode = rdcost.first_argmin(ccost, 0)
+    lane = torch.arange(cmode.shape[0], device=dev)
+    n = lane.shape[0]
+    levels = (udc[cmode, lane].reshape(n, 4),
+              _zigzag(uac[cmode, lane].reshape(n, 4, 4, 4)).reshape(n, 64),
+              vdc[cmode, lane].reshape(n, 4),
+              _zigzag(vac[cmode, lane].reshape(n, 4, 4, 4)).reshape(n, 64))
+    return (cmode.to(torch.int32), ccost[cmode, lane], levels,
+            urec[cmode, lane], vrec[cmode, lane], (c0, cx0))
+
+
+class _Wavefront:
+    """The slope-2 schedule of an n_mby x n_mbx frame on ``dev``: per step
+    d the lanes' MB coordinates (clamped to 0 on invalid lanes), validity
+    and availability of the top / left neighbours, plus the inverse map
+    that puts per-step outputs back in raster order."""
+
+    def __init__(self, n_mby: int, n_mbx: int, dev):
+        MBY, MBX, VALID, DMAP, KMAP = diagonal_maps2(n_mby, n_mbx)
+        # the whole schedule goes up in a few copies
+        self.mby = torch.from_numpy(MBY).to(dev).long()
+        self.mbx = torch.from_numpy(MBX).to(dev).long()
+        self.valid = torch.from_numpy(VALID).to(dev)
+        self.dm = torch.from_numpy(DMAP).to(dev).long()
+        self.km = torch.from_numpy(KMAP).to(dev).long()
+        self.steps = MBY.shape[0]
+
+    def lanes(self, d: int):
+        """(valid, mbyc, mbxc, avt, avl) of step d."""
+        valid = self.valid[d]
+        return (valid, torch.where(valid, self.mby[d], 0),
+                torch.where(valid, self.mbx[d], 0),
+                (self.mby[d] > 0) & valid, (self.mbx[d] > 0) & valid)
+
+    def raster(self, outs):
+        """Per-step output tuples -> raster-order tensors, one per column."""
+        return tuple(torch.stack(col)[self.dm, self.km] for col in zip(*outs))
+
+
+def _mb_planes(y, u, v):
+    n_mby, n_mbx = y.shape[0] // 16, y.shape[1] // 16
+    return (y.reshape(n_mby, 16, n_mbx, 16).movedim(1, 2),
+            u.reshape(n_mby, 8, n_mbx, 8).movedim(1, 2),
+            v.reshape(n_mby, 8, n_mbx, 8).movedim(1, 2))
+
+
+def _bordered_planes(h: int, w: int, dev):
+    """Zeroed recon planes with a 1-sample top / left border, 16 extra
+    right columns for block 1's raw top-right gather at the last MB
+    column (masked by avtr), and sink rows below the frame for the
+    scatters of invalid lanes; the 8x8 mode grid with two sink rows."""
+    py = torch.zeros((h + 17, w + 17), dtype=torch.int32, device=dev)
+    pu = torch.zeros((h // 2 + 9, w // 2 + 1), dtype=torch.int32, device=dev)
+    mg = torch.full((2 * (h // 16) + 2, 2 * (w // 16)), -1,
+                    dtype=torch.int32, device=dev)
+    return py, pu, torch.zeros_like(pu), mg
+
+
 def encode_iframe_rd8(y, u, v, qp: int, qpc: int, deblock: bool = False):
     """Intra frame with a per-MB RD choice between I_16x16 (4 modes) and
     I_NxN with the 8x8 transform (four 8x8 blocks, 9 modes each).
@@ -392,151 +538,54 @@ def encode_iframe_rd8(y, u, v, qp: int, qpc: int, deblock: bool = False):
     bool, "i8_modes" (n_mby, n_mbx, 4) and "i8_luma" (n_mby, n_mbx, 4,
     64) zigzag scans (the High-profile CABAC entropy inputs), and the
     uint8 recon planes."""
-    y = y.to(torch.int32)
-    u = u.to(torch.int32)
-    v = v.to(torch.int32)
+    y, u, v = (a.to(torch.int32) for a in (y, u, v))
     dev = y.device
     h, w = y.shape
     n_mby, n_mbx = h // 16, w // 16
-    MBY, MBX, VALID, DMAP, KMAP = diagonal_maps2(n_mby, n_mbx)
+    wf = _Wavefront(n_mby, n_mbx, dev)
     lam2 = rdcost.lam2_for_qp(qp)
     lam2c = rdcost.lam2_for_qp(qpc)
-    # the whole wavefront schedule goes up in three copies
-    mby_d = torch.from_numpy(MBY).to(dev).long()
-    mbx_d = torch.from_numpy(MBX).to(dev).long()
-    valid_d = torch.from_numpy(VALID).to(dev)
-
-    ymb = y.reshape(n_mby, 16, n_mbx, 16).movedim(1, 2)
-    umb = u.reshape(n_mby, 8, n_mbx, 8).movedim(1, 2)
-    vmb = v.reshape(n_mby, 8, n_mbx, 8).movedim(1, 2)
-
-    # +1 top/left border (masked by availability); +16 right columns keep
-    # block 1's raw top-right gather in bounds at the last MB column
-    # (masked by avtr); the bottom rows past the frame are the sink that
-    # takes the scatters of invalid lanes
-    py = torch.zeros((h + 17, w + 17), dtype=torch.int32, device=dev)
-    pu = torch.zeros((h // 2 + 9, w // 2 + 1), dtype=torch.int32, device=dev)
-    pv = torch.zeros_like(pu)
-    # 8x8-granular i8 mode grid, -1 = not i8; two sink rows at the bottom
-    mg = torch.full((2 * n_mby + 2, 2 * n_mbx), -1, dtype=torch.int32,
-                    device=dev)
+    ymb, umb, vmb = _mb_planes(y, u, v)
+    py, pu, pv, mg = _bordered_planes(h, w, dev)
     a16 = torch.arange(16, device=dev)
     a8 = torch.arange(8, device=dev)
-    ue_bits = constant("chroma_ue_bits", _CHROMA_UE_BITS, dev,
-                       torch.float32)
-    mg_dy = torch.tensor([0, 0, 1, 1], device=dev)
-    mg_dx = torch.tensor([0, 1, 0, 1], device=dev)
 
     outs = []
-    for d in range(MBY.shape[0]):
-        valid = valid_d[d]
-        mbyc = torch.where(valid, mby_d[d], 0)
-        mbxc = torch.where(valid, mbx_d[d], 0)
-        avt = (mby_d[d] > 0) & valid
-        avl = (mbx_d[d] > 0) & valid
+    for d in range(wf.steps):
+        valid, mbyc, mbxc, avt, avl = wf.lanes(d)
         y0 = mbyc * 16 + 1
         x0 = mbxc * 16 + 1
         cur = ymb[mbyc, mbxc]
 
-        # ---- I16 trial ----
         top, left, corner = _gather_edges(py, y0, x0, a16)
         mode16, z_dc, z_ac, recon16, cost16 = _luma_modes(
             cur, top, left, corner, avt, avl, qp, lam2)
-
-        # ---- i8 trial: 4 blocks in raster order ----
-        b_modes, b_z, b_rec, b_cost = [], [], [], []
-        for b8 in range(4):
-            oy, ox = 8 * (b8 // 2), 8 * (b8 % 2)
-            r0 = y0 + oy
-            c0 = x0 + ox
-            avt_b = (r0 > 1) & valid
-            avl_b = (c0 > 1) & valid
-            if b8 == 1:
-                avtr_b = avt_b & (mbxc < n_mbx - 1)
-            elif b8 == 3:
-                avtr_b = torch.zeros_like(avt_b)
-            else:
-                avtr_b = avt_b
-            t_raw = py[(r0 - 1)[:, None], c0[:, None] + a16[None, :]]
-            le_raw = py[r0[:, None] + a8[None, :], (c0 - 1)[:, None]]
-            m_raw = py[r0 - 1, c0 - 1]
-            # prev-mode prediction (spec 8.3.1.1 min rule, -1 -> DC)
-            gy = 2 * mbyc + b8 // 2
-            gx = 2 * mbxc + b8 % 2
-            if b8 in (0, 2):
-                a_m = torch.where(gx > 0, mg[gy, (gx - 1).clamp_min(0)], -1)
-            else:
-                a_m = b_modes[b8 - 1]
-            if b8 in (0, 1):
-                b_m = torch.where(gy > 0, mg[(gy - 1).clamp_min(0), gx], -1)
-            else:
-                b_m = b_modes[b8 - 2]
-            pred_m = torch.minimum(torch.where(a_m >= 0, a_m, 2),
-                                   torch.where(b_m >= 0, b_m, 2))
-            bm, z64, rec8, bc = _i8_block_trial(
-                cur[:, oy:oy + 8, ox:ox + 8], t_raw, le_raw, m_raw, avt_b,
-                avl_b, avt_b & avl_b, avtr_b, qp, lam2, pred_m)
-            _scatter(py, torch.where(valid, r0, h + 1), c0, rec8, a8)
-            b_modes.append(bm)
-            b_z.append(z64)
-            b_rec.append(rec8)
-            b_cost.append(bc)
-
-        cost_i8 = (b_cost[0] + b_cost[1] + b_cost[2] + b_cost[3]
-                   + lam2 * I8_OVERHEAD_BITS)
-        use_i8 = cost_i8 < cost16 + lam2 * I16_OVERHEAD_BITS
-
-        rec_i8 = torch.cat(
-            [torch.cat([b_rec[0], b_rec[1]], dim=2),
-             torch.cat([b_rec[2], b_rec[3]], dim=2)], dim=1)
+        gmodes, b_z, rec_i8, cost8 = _i8_trial(
+            py, mg, cur, y0, x0, mbyc, mbxc, valid, n_mbx, h, qp, lam2)
+        use_i8 = cost8 + lam2 * I8_OVERHEAD_BITS \
+            < cost16 + lam2 * I16_OVERHEAD_BITS
         recon = torch.where(use_i8[:, None, None], rec_i8, recon16)
         _scatter(py, torch.where(valid, y0, h + 1), x0, recon, a16)
-
         # i8 winners publish their modes, everything else stays -1 (DC to
         # its neighbors)
-        gy0 = torch.where(valid, 2 * mbyc, 2 * n_mby)
-        gmodes = torch.stack(b_modes, dim=1)               # (L, 4)
-        mg[gy0[:, None] + mg_dy[None, :],
-           (2 * mbxc)[:, None] + mg_dx[None, :]] = \
-            torch.where(use_i8[:, None], gmodes, -1)
+        _publish_modes(mg, valid, mbyc, mbxc,
+                       torch.where(use_i8[:, None], gmodes, -1), n_mby)
+
+        cmode, _, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
+            pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
+        c0s = torch.where(valid, c0, h // 2 + 1)
+        _scatter(pu, c0s, cx0, urec, a8)
+        _scatter(pv, c0s, cx0, vrec, a8)
 
         # zero the losing representation's level arrays
-        z_dc = z_dc * ~use_i8[:, None]
-        z_ac = z_ac * ~use_i8[:, None, None]
-        i8_luma = torch.stack(b_z, dim=1) * use_i8[:, None, None]
+        outs.append((mode16, z_dc * ~use_i8[:, None],
+                     z_ac * ~use_i8[:, None, None], cmode, *clevels, use_i8,
+                     gmodes, b_z * use_i8[:, None, None]))
 
-        # ---- chroma: one mode for Cb and Cr, chosen jointly ----
-        c0_ = mbyc * 8 + 1
-        cx0 = mbxc * 8 + 1
-        topu, leftu, cornu = _gather_edges(pu, c0_, cx0, a8)
-        topv, leftv, cornv = _gather_edges(pv, c0_, cx0, a8)
-        udc, uac, urec, ussd, ubits = _chroma_mode_trials(
-            umb[mbyc, mbxc], topu, leftu, cornu, avt, avl, qpc)
-        vdc, vac, vrec, vssd, vbits = _chroma_mode_trials(
-            vmb[mbyc, mbxc], topv, leftv, cornv, avt, avl, qpc)
-        callowed = torch.stack([torch.ones_like(avt), avl, avt, avt & avl])
-        ccost = torch.where(
-            callowed,
-            ussd + vssd + lam2c * (ubits + vbits + ue_bits[:, None]),
-            torch.inf)
-        cmode = rdcost.first_argmin(ccost, 0)
-        lane = torch.arange(valid.shape[0], device=dev)
-        n = lane.shape[0]
-        c0s = torch.where(valid, c0_, h // 2 + 1)
-        _scatter(pu, c0s, cx0, urec[cmode, lane], a8)
-        _scatter(pv, c0s, cx0, vrec[cmode, lane], a8)
-
-        outs.append((mode16, z_dc, z_ac, cmode.to(torch.int32),
-                     udc[cmode, lane].reshape(n, 4),
-                     _zigzag(uac[cmode, lane].reshape(n, 4, 4, 4)),
-                     vdc[cmode, lane].reshape(n, 4),
-                     _zigzag(vac[cmode, lane].reshape(n, 4, 4, 4)),
-                     use_i8, gmodes, i8_luma))
-
-    dm = torch.from_numpy(DMAP).to(dev).long()
-    km = torch.from_numpy(KMAP).to(dev).long()
     (modes, luma_dc, luma_ac, cmodes, cb_dc, cb_ac, cr_dc, cr_ac, i8_grid,
-     i8_modes, i8_luma) = (torch.stack(col)[dm, km] for col in zip(*outs))
+     i8_modes, i8_luma) = wf.raster(outs)
+    cb_ac = cb_ac.reshape(n_mby, n_mbx, 4, 16)
+    cr_ac = cr_ac.reshape(n_mby, n_mbx, 4, 16)
 
     recon_y = py[1:h + 1, 1:w + 1].contiguous()
     recon_u = pu[1:h // 2 + 1, 1:w // 2 + 1].contiguous()
@@ -559,4 +608,91 @@ def encode_iframe_rd8(y, u, v, qp: int, qpc: int, deblock: bool = False):
         "recon_y": recon_y.to(torch.uint8),
         "recon_u": recon_u.to(torch.uint8),
         "recon_v": recon_v.to(torch.uint8),
+    }
+
+
+def intra_overlay_pass(cur_y, cur_u, cur_v, ry, ru, rv, inter_cost,
+                       qp: int, qpc: int) -> dict:
+    """Intra MBs inside a P picture: the slope-2 wavefront of
+    ``encode_iframe_rd8`` run over planes that start as the inter pass's
+    pre-deblock recon (``ry``, ``ru``, ``rv``), replacing each MB where
+    I16 or I_NxN / i8 (with its chroma mode trial) costs less than the
+    inter MB's ``inter_cost`` (nMBy, nMBx) in the same SSD + lambda2 *
+    bits currency. Later MBs predict from the final recon, so the levels
+    reproduce exactly in any spec decoder.
+
+    Returns "intra" / "i8" (nMBy, nMBx) bool, "modes" (I16) / "cmodes",
+    "luma_dc" (nMBy, nMBx, 16), "luma_mux" (nMBy, nMBx, 256: an intra
+    MB's I16 AC blocks or four i8 scans, zeros elsewhere), "i8_modes"
+    (nMBy, nMBx, 4; -1 off i8 MBs), the chroma levels of the intra MBs
+    "cb_dc" / "cb_ac" / "cr_dc" / "cr_ac" (zeros elsewhere), and the int32
+    recon planes (pre-deblock)."""
+    dev = cur_y.device
+    h, w = cur_y.shape
+    n_mby, n_mbx = h // 16, w // 16
+    wf = _Wavefront(n_mby, n_mbx, dev)
+    lam2 = rdcost.lam2_for_qp(qp)
+    lam2c = rdcost.lam2_for_qp(qpc)
+    ymb, umb, vmb = _mb_planes(cur_y, cur_u, cur_v)
+    py, pu, pv, mg = _bordered_planes(h, w, dev)
+    py[1:h + 1, 1:w + 1] = ry
+    pu[1:h // 2 + 1, 1:w // 2 + 1] = ru
+    pv[1:h // 2 + 1, 1:w // 2 + 1] = rv
+    a16 = torch.arange(16, device=dev)
+    a8 = torch.arange(8, device=dev)
+    ic_s = inter_cost[wf.mby, wf.mbx]                       # (D, L)
+
+    outs = []
+    for d in range(wf.steps):
+        valid, mbyc, mbxc, avt, avl = wf.lanes(d)
+        y0 = mbyc * 16 + 1
+        x0 = mbxc * 16 + 1
+        cur = ymb[mbyc, mbxc]
+
+        top, left, corner = _gather_edges(py, y0, x0, a16)
+        mode16, z_dc, z_ac, recon16, cost16 = _luma_modes(
+            cur, top, left, corner, avt, avl, qp, lam2)
+        save16 = py[y0[:, None, None] + a16[None, :, None],
+                    x0[:, None, None] + a16[None, None, :]]
+        gmodes, b_z, rec_i8, cost8 = _i8_trial(
+            py, mg, cur, y0, x0, mbyc, mbxc, valid, n_mbx, h, qp, lam2)
+        cmode, ccost, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
+            pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
+
+        # MB decision: inter vs I16 vs i8 (the chroma cost is shared)
+        cost_i8 = cost8 + lam2 * I8_OVERHEAD_BITS
+        cost_i16 = cost16 + lam2 * I16_OVERHEAD_BITS
+        intra_cost = torch.minimum(cost_i8, cost_i16) + ccost \
+            + lam2 * P_INTRA_EXTRA_BITS
+        use_intra = valid & (intra_cost < ic_s[d])
+        use_i8 = use_intra & (cost_i8 < cost_i16)
+        use_16 = use_intra & ~use_i8
+
+        rec_mb = torch.where(use_i8[:, None, None], rec_i8, recon16)
+        # MBs that stay inter restore the recon the i8 blocks overwrote
+        final = torch.where(use_intra[:, None, None], rec_mb, save16)
+        _scatter(py, torch.where(valid, y0, h + 1), x0, final, a16)
+        c0s = torch.where(use_intra, c0, h // 2 + 1)
+        _scatter(pu, c0s, cx0, urec, a8)
+        _scatter(pv, c0s, cx0, vrec, a8)
+        gvals = torch.where(use_i8[:, None], gmodes, -1)
+        _publish_modes(mg, valid, mbyc, mbxc, gvals, n_mby)
+
+        n = valid.shape[0]
+        luma_mux = (z_ac * use_16[:, None, None]).reshape(n, 256) \
+            + (b_z * use_i8[:, None, None]).reshape(n, 256)
+        outs.append((use_intra, use_i8, mode16, cmode,
+                     z_dc * use_16[:, None], luma_mux, gvals,
+                     *(lv * use_intra[:, None] for lv in clevels)))
+
+    (intra, i8, modes, cmodes, luma_dc, luma_mux, i8_modes, cb_dc, cb_ac,
+     cr_dc, cr_ac) = wf.raster(outs)
+    return {
+        "intra": intra, "i8": i8, "modes": modes, "cmodes": cmodes,
+        "luma_dc": luma_dc, "luma_mux": luma_mux, "i8_modes": i8_modes,
+        "cb_dc": cb_dc, "cb_ac": cb_ac.reshape(n_mby, n_mbx, 4, 16),
+        "cr_dc": cr_dc, "cr_ac": cr_ac.reshape(n_mby, n_mbx, 4, 16),
+        "recon_y": py[1:h + 1, 1:w + 1].contiguous(),
+        "recon_u": pu[1:h // 2 + 1, 1:w // 2 + 1].contiguous(),
+        "recon_v": pv[1:h // 2 + 1, 1:w // 2 + 1].contiguous(),
     }

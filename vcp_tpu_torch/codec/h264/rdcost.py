@@ -15,6 +15,9 @@ here depends on a device's ``pow`` / ``log2`` or on its reduction order:
   them stays below 2^15, and 37 bits fit float64's 53, so the float64
   sum is exact in any order and its rounding to float32 is the same
   everywhere;
+* ``mv_bits`` and ``se_bits`` (the MV-rate proxies of the B mode
+  decision and of the partition trial, both of ``log2`` of a vector
+  component) read float32 tables made on the host the same way;
 * ``ssd`` sums squared int32 differences in int32 (at most 256 * 255^2 <
   2^24, exact in float32);
 * ``first_argmin`` returns the first index of the minimum, the tie rule
@@ -57,6 +60,44 @@ def level_bits(levels: torch.Tensor, dims) -> torch.Tensor:
     tab = constant("level_bits", _bits_table(), levels.device, torch.float32)
     return tab[levels.abs().long()].sum(dim=dims, dtype=torch.float64) \
         .to(torch.float32)
+
+
+# |mv| and |mvd| in quarter-pel stay far below: a vector is bounded by
+# 4 * (search range + 1) <= 100 at the ported efforts
+MV_CAP = 1023
+
+
+def _log2_table(step: float) -> np.ndarray:
+    a = np.arange(MV_CAP + 1, dtype=np.float64)
+    return np.log2(step * a + 1.0).astype(np.float32)
+
+
+def _se_table() -> np.ndarray:
+    tab = np.float32(2.0) * _log2_table(2.0) + np.float32(1.0)
+    tab[0] = 1.0
+    return tab.astype(np.float32)
+
+
+def mv_bits(mv: torch.Tensor) -> torch.Tensor:
+    """Bit proxy of a quarter-pel vector (..., 2), 2*log2(|x|+1) +
+    2*log2(|y|+1) + 2, float32."""
+    tab = constant("log2_mv", _log2_table(1.0), mv.device, torch.float32)
+    a = mv.abs().clamp_max(MV_CAP).long()
+    return 2.0 * tab[a[..., 0]] + 2.0 * tab[a[..., 1]] + 2.0
+
+
+def se_bits(v: torch.Tensor) -> torch.Tensor:
+    """se(v) Exp-Golomb length proxy per component, 1 for 0 and else
+    2*log2(2|v|+1) + 1, float32."""
+    tab = constant("se_bits", _se_table(), v.device, torch.float32)
+    return tab[v.abs().clamp_max(MV_CAP).long()]
+
+
+def exact_sum(a: torch.Tensor, dims) -> torch.Tensor:
+    """float32 sum of a few float32 terms over ``dims``, summed in float64
+    (exact) and rounded once, so the order of the terms does not
+    matter."""
+    return a.sum(dim=dims, dtype=torch.float64).to(torch.float32)
 
 
 def ssd(a: torch.Tensor, b: torch.Tensor, dims) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Copy of the writer half of ``vcp_tpu/codec/mp4.py`` (video only):
 :class:`Mp4Writer` writes moov before mdat for ``-movflags +faststart``,
-with length-prefixed NAL samples and an avcC sample entry. ``iter_boxes``
+with length-prefixed NAL samples, an avcC sample entry and, for streams
+with B pictures, a ctts box of composition-time offsets. ``iter_boxes``
 / ``find_box`` walk a written file's box tree.
 """
 
@@ -68,6 +69,7 @@ class Sample:
     data: bytes              # length-prefixed NALs
     duration: int            # in track timescale units
     is_sync: bool = True
+    cts_offset: int = 0      # composition-time offset (B pictures)
 
 
 @dataclasses.dataclass
@@ -130,6 +132,17 @@ def _stbl(tr: VideoTrack, chunk_offsets: list[int]) -> bytes:
         parts.append(full_box(b"stss", 0, 0,
                               struct.pack(">I", len(syncs))
                               + b"".join(struct.pack(">I", i) for i in syncs)))
+    if any(s.cts_offset for s in samples):
+        runs: list[tuple[int, int]] = []
+        for s in samples:
+            if runs and runs[-1][1] == s.cts_offset:
+                runs[-1] = (runs[-1][0] + 1, s.cts_offset)
+            else:
+                runs.append((1, s.cts_offset))
+        parts.append(full_box(b"ctts", 0, 0,
+                              struct.pack(">I", len(runs))
+                              + b"".join(struct.pack(">II", c, o)
+                                         for c, o in runs)))
     # one chunk holding all samples of this track
     parts.append(full_box(b"stsc", 0, 0,
                           struct.pack(">IIII", 1, 1, len(samples), 1)))

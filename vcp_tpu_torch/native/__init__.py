@@ -36,4 +36,27 @@ def get_lib() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
         i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, u8p, i32p,
         u8p, i64]
+    lib.vcp_write_pslice_cabac_parts.restype = i64
+    lib.vcp_write_pslice_cabac_parts.argtypes = [
+        i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        u8p, u8p, i32,                  # active, t8, transform_8x8
+        i32p, i32p,                     # mv8_xy, parts
+        i32p, i32p, i32p, i32p, i32p,   # luma + chroma arrays
+        u8p, i64]
+    lib.vcp_write_pslice_cabac_intra.restype = i64
+    lib.vcp_write_pslice_cabac_intra.argtypes = [
+        i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        u8p, i32,                       # t8, transform_8x8
+        u8p, u8p, i32p, i32p,           # intra, i8, imodes, icmodes
+        i32p, i32p,                     # luma_dc, i8_modes
+        i32p, i32p,                     # mv8_xy, parts
+        i32p, i32p, i32p, i32p, i32p,   # luma + chroma arrays
+        u8p, i64]
+    lib.vcp_write_bslice_cabac.restype = i64
+    lib.vcp_write_bslice_cabac.argtypes = [
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32p, i32p, i32p,               # mv0_xy, mv1_xy, mode
+        u8p, u8p,                       # col_zero, col_safe
+        i32p, i32p, i32p, i32p, i32p,   # luma + chroma arrays
+        u8p, i64]
     return lib

@@ -1,11 +1,13 @@
 // CABAC slice entropy engine (host).
 //
-// Copy of the engine and of four slice writers of
+// Copy of the engine and of the CABAC slice writers of
 // vcp_tpu/native/cabac.cpp (spec 9.3): I slices of I16x16 MBs, I slices
-// that mix I16x16 with I_NxN / transform-8x8 MBs, and P slices of
+// that mix I16x16 with I_NxN / transform-8x8 MBs, P slices of
 // P_L0_16x16 + P_Skip MBs without and with the High-profile
-// transform_size_8x8 flag, bit-identical to vcp_tpu's writers. Host
-// code, not a device kernel.
+// transform_size_8x8 flag, partitioned P slices (16x16 / 16x8 / 8x16 /
+// P_8x8), partitioned P slices with intra MBs, and B slices (B_Skip /
+// B_Direct_16x16 / B_L0 / B_L1 / B_Bi_16x16, spatial direct),
+// bit-identical to vcp_tpu's writers. Host code, not a device kernel.
 //
 // C ABI, loaded via ctypes.
 
@@ -896,6 +898,275 @@ int64_t vcp_write_pslice_cabac_t8(
         out, out_cap, t8, 1);
 }
 
+
+// ---------------------------------------------------------------------------
+// Partitioned CABAC P slice (16x16 / 16x8 / 8x16 / P_8x8) on the 8x8 MV
+// grid — native counterpart of cabac_syntax.write_pslice_cabac with a
+// non-empty ``parts`` grid (the quality presets' shipping path).
+// ---------------------------------------------------------------------------
+
+static bool blk8_before(int by, int bx, int cby, int cbx) {
+    // pframe._blk8_before: MB raster, partitions raster within the MB
+    int mby = by >> 1, mbx = bx >> 1, cmby = cby >> 1, cmbx = cbx >> 1;
+    if (cmby != mby || cmbx != mbx)
+        return cmby < mby || (cmby == mby && cmbx < mbx);
+    return (2 * (cby & 1) + (cbx & 1)) < (2 * (by & 1) + (bx & 1));
+}
+
+struct Nb8 { int x, y, ref; };
+
+static Nb8 get8(const int32_t* mv8, int nbx2, int nby2, int by, int bx) {
+    if (bx < 0 || by < 0 || bx >= nbx2 || by >= nby2)
+        return {0, 0, -1};
+    size_t i = (size_t)by * nbx2 + bx;
+    return {mv8[2 * i + 0], mv8[2 * i + 1], 0};
+}
+
+// pframe._neighbor8 (valid8 all-true encoder semantics)
+static void neighbor8(const int32_t* mv8, int nbx2, int nby2, int by,
+                      int bx, int pw, Nb8* a, Nb8* b, Nb8* c) {
+    *a = get8(mv8, nbx2, nby2, by, bx - 1);
+    *b = get8(mv8, nbx2, nby2, by - 1, bx);
+    bool c_exists = by - 1 >= 0 && bx + pw < nbx2
+        && blk8_before(by, bx, by - 1, bx + pw);
+    if (c_exists) *c = get8(mv8, nbx2, nby2, by - 1, bx + pw);
+    else *c = {0, 0, -1};
+    if (!c_exists || c->ref < 0) {
+        Nb8 d = get8(mv8, nbx2, nby2, by - 1, bx - 1);
+        if (c->ref < 0) *c = d;
+    }
+}
+
+static void mv_pred8c(const int32_t* mv8, int nbx2, int nby2, int by,
+                      int bx, int pw, int ph, int part_idx, int* out) {
+    Nb8 a, b, c;
+    neighbor8(mv8, nbx2, nby2, by, bx, pw, &a, &b, &c);
+    if (pw == 2 && ph == 1) {                       // 16x8
+        if (part_idx == 0 && b.ref == 0) { out[0] = b.x; out[1] = b.y; return; }
+        if (part_idx == 1 && a.ref == 0) { out[0] = a.x; out[1] = a.y; return; }
+    } else if (pw == 1 && ph == 2) {                // 8x16
+        if (part_idx == 0 && a.ref == 0) { out[0] = a.x; out[1] = a.y; return; }
+        if (part_idx == 1 && c.ref == 0) { out[0] = c.x; out[1] = c.y; return; }
+    }
+    bool b_exists = by - 1 >= 0 && b.ref >= 0;
+    if (!b_exists && c.ref < 0 && a.ref >= 0) {
+        out[0] = a.x; out[1] = a.y; return;
+    }
+    int hits = (a.ref == 0) + (b.ref == 0) + (c.ref == 0);
+    if (hits == 1) {
+        const Nb8& m = a.ref == 0 ? a : (b.ref == 0 ? b : c);
+        out[0] = m.x; out[1] = m.y; return;
+    }
+    auto med3 = [](int u, int v, int w) {
+        int lo = u < v ? u : v, hi = u < v ? v : u;
+        return w < lo ? lo : (w > hi ? hi : w);
+    };
+    out[0] = med3(a.x, b.x, c.x);
+    out[1] = med3(a.y, b.y, c.y);
+}
+
+static void skip_mv8c(const int32_t* mv8, int nbx2, int nby2, int mbx,
+                      int mby, int* out) {
+    int by = 2 * mby, bx = 2 * mbx;
+    if (bx - 1 < 0 || by - 1 < 0) { out[0] = out[1] = 0; return; }
+    Nb8 a, b, c;
+    neighbor8(mv8, nbx2, nby2, by, bx, 2, &a, &b, &c);
+    if ((a.ref == 0 && a.x == 0 && a.y == 0)
+        || (b.ref == 0 && b.x == 0 && b.y == 0)
+        || a.ref < 0 || b.ref < 0) {
+        out[0] = out[1] = 0; return;
+    }
+    mv_pred8c(mv8, nbx2, nby2, by, bx, 2, 2, 0, out);
+}
+
+// mvd ctx on the 8x8 grid (cabac_syntax.MbState.mvd_ctx)
+static int mvd_ctx8(const int32_t* absmvd8, const uint8_t* avail,
+                    int n_mbx, int nbx2, int by, int bx, int comp) {
+    int s = 0;
+    if (bx > 0 && avail[(size_t)(by >> 1) * n_mbx + ((bx - 1) >> 1)])
+        s += absmvd8[2 * ((size_t)by * nbx2 + bx - 1) + comp];
+    if (by > 0 && avail[(size_t)((by - 1) >> 1) * n_mbx + (bx >> 1)])
+        s += absmvd8[2 * ((size_t)(by - 1) * nbx2 + bx) + comp];
+    return s < 3 ? 0 : (s <= 32 ? 1 : 2);
+}
+
+static void encode_mvd8(CabacEnc& e, H264Ctxs& cx, int ctx0, int comp,
+                        int mvd) {
+    int v = mvd < 0 ? -mvd : mvd;
+    Ctx** row = cx.mvd[comp];
+    auto ctx_of = [&](int b) {
+        return b == 0 ? ctx0 : (2 + b < 6 ? 2 + b : 6);
+    };
+    int prefix = v < 9 ? v : 9;
+    for (int b = 0; b < prefix; b++) e.encode(*row[ctx_of(b)], 1);
+    if (prefix < 9) e.encode(*row[ctx_of(prefix)], 0);
+    else write_egk(e, (uint32_t)(v - 9), 3);
+    if (v) e.bypass(mvd < 0 ? 1 : 0);
+}
+
+int64_t vcp_write_pslice_cabac_parts(
+    int n_mby, int n_mbx, int qp, int init_qp, int frame_num_bits,
+    int frame_num, int deblock_idc, int poc_bits, int poc_lsb,
+    const uint8_t* active, const uint8_t* t8, int transform_8x8,
+    const int32_t* mv8_xy,              // (2H, 2W, 2) [x, y] qpel
+    const int32_t* parts,               // (nMBy, nMBx) 0/1/2/3
+    const int32_t* luma,
+    const int32_t* cb_dc, const int32_t* cb_ac,
+    const int32_t* cr_dc, const int32_t* cr_ac,
+    uint8_t* out, int64_t out_cap) {
+    HdrWriter bw;
+    cabac_slice_header(bw, false, frame_num_bits, frame_num, 0, qp,
+                       init_qp, deblock_idc, poc_bits, poc_lsb);
+    bw.align_ones();
+
+    CabacEnc e;
+    e.bits.reserve((size_t)n_mby * n_mbx * 128);
+    H264Ctxs cx(qp, true);
+    MbState st(n_mby, n_mbx);
+    const int nbx2 = 2 * n_mbx, nby2 = 2 * n_mby;
+    std::vector<int32_t> mvg(mv8_xy,
+                             mv8_xy + (size_t)nby2 * nbx2 * 2);
+    int32_t* mvp = mvg.data();
+    std::vector<int32_t> absmvd8((size_t)nby2 * nbx2 * 2, 0);
+
+    // partition geometry per pt on the 8x8 grid: (dy, dx, pw, ph)
+    static const int GEO16x8[2][4] = {{0, 0, 2, 1}, {1, 0, 2, 1}};
+    static const int GEO8x16[2][4] = {{0, 0, 1, 2}, {0, 1, 1, 2}};
+
+    auto set_absmvd = [&](int by, int bx, int ph, int pw, int ax,
+                          int ay) {
+        for (int y = by; y < by + ph; y++)
+            for (int x = bx; x < bx + pw; x++) {
+                absmvd8[2 * ((size_t)y * nbx2 + x) + 0] = ax;
+                absmvd8[2 * ((size_t)y * nbx2 + x) + 1] = ay;
+            }
+    };
+
+    for (int mby = 0; mby < n_mby; mby++) {
+        for (int mbx = 0; mbx < n_mbx; mbx++) {
+            size_t mb = (size_t)mby * n_mbx + mbx;
+            int by0 = 2 * mby, bx0 = 2 * mbx;
+            int pt = parts[mb];
+            bool last = (mby == n_mby - 1) && (mbx == n_mbx - 1);
+
+            int cbp_l = 0, cbp_c = 0;
+            const int32_t* zl = luma + mb * 256;
+            const int32_t* cdc[2] = {cb_dc + mb * 4, cr_dc + mb * 4};
+            const int32_t* cac[2] = {cb_ac + mb * 64, cr_ac + mb * 64};
+            bool is_skip;
+            int m[2] = {0, 0}, smv[2];
+            if (active && !active[mb]) {
+                skip_mv8c(mvp, nbx2, nby2, mbx, mby, smv);
+                for (int y = by0; y < by0 + 2; y++)
+                    for (int x = bx0; x < bx0 + 2; x++) {
+                        mvp[2 * ((size_t)y * nbx2 + x) + 0] = smv[0];
+                        mvp[2 * ((size_t)y * nbx2 + x) + 1] = smv[1];
+                    }
+                is_skip = true;
+            } else {
+                for (int blk = 0; blk < 16; blk++)
+                    for (int k = 0; k < 16; k++)
+                        if (zl[blk * 16 + k]) {
+                            cbp_l |= 1 << (blk / 4);
+                            break;
+                        }
+                bool any_cac = false, any_cdc = false;
+                for (int c = 0; c < 2; c++) {
+                    for (int k = 0; k < 4; k++)
+                        if (cdc[c][k]) any_cdc = true;
+                    for (int blk = 0; blk < 4; blk++)
+                        for (int k = 1; k < 16; k++)
+                            if (cac[c][blk * 16 + k]) any_cac = true;
+                }
+                cbp_c = any_cac ? 2 : (any_cdc ? 1 : 0);
+                m[0] = mvp[2 * ((size_t)by0 * nbx2 + bx0) + 0];
+                m[1] = mvp[2 * ((size_t)by0 * nbx2 + bx0) + 1];
+                is_skip = false;
+                if (pt == 0) {
+                    skip_mv8c(mvp, nbx2, nby2, mbx, mby, smv);
+                    is_skip = cbp_l == 0 && cbp_c == 0
+                        && m[0] == smv[0] && m[1] == smv[1];
+                }
+            }
+            e.encode(*cx.skip[st.skip_ctx(mbx, mby)], is_skip ? 1 : 0);
+            st.avail[mb] = 1;
+            st.skip[mb] = is_skip ? 1 : 0;
+            if (is_skip) {
+                st.fill_cbp_luma8(mbx, mby, 0);
+                st.cbp_chroma[mb] = 0;
+                e.terminate(last ? 1 : 0);
+                continue;
+            }
+
+            auto mvd_part = [&](int by, int bx, int pw, int ph,
+                                int part_idx) {
+                int pred[2];
+                mv_pred8c(mvp, nbx2, nby2, by, bx, pw, ph, part_idx,
+                          pred);
+                size_t bi = (size_t)by * nbx2 + bx;
+                int dx = mvp[2 * bi + 0] - pred[0];
+                int dy = mvp[2 * bi + 1] - pred[1];
+                encode_mvd8(e, cx,
+                            mvd_ctx8(absmvd8.data(), st.avail.data(),
+                                     n_mbx, nbx2, by, bx, 0), 0, dx);
+                encode_mvd8(e, cx,
+                            mvd_ctx8(absmvd8.data(), st.avail.data(),
+                                     n_mbx, nbx2, by, bx, 1), 1, dy);
+                set_absmvd(by, bx, ph, pw, dx < 0 ? -dx : dx,
+                           dy < 0 ? -dy : dy);
+            };
+
+            if (pt == 3) {                          // P_8x8: "001"
+                e.encode(*cx.mbt_p[0], 0);
+                e.encode(*cx.mbt_p[1], 0);
+                e.encode(*cx.mbt_p[2], 1);
+                for (int q = 0; q < 4; q++)
+                    e.encode(cx.g[21], 1);          // sub_mb_type "1"
+                for (int q = 0; q < 4; q++)
+                    mvd_part(by0 + (q >> 1), bx0 + (q & 1), 1, 1, q);
+            } else if (pt == 1 || pt == 2) {        // 16x8 "011"/8x16 "010"
+                e.encode(*cx.mbt_p[0], 0);
+                e.encode(*cx.mbt_p[1], 1);
+                e.encode(cx.g[17], pt == 1 ? 1 : 0);
+                const int (*geo)[4] = pt == 1 ? GEO16x8 : GEO8x16;
+                for (int i = 0; i < 2; i++)
+                    mvd_part(by0 + geo[i][0], bx0 + geo[i][1],
+                             geo[i][2], geo[i][3], i);
+            } else {                                // P_L0_16x16 "000"
+                e.encode(*cx.mbt_p[0], 0);
+                e.encode(*cx.mbt_p[1], 0);
+                e.encode(*cx.mbt_p[2], 0);
+                mvd_part(by0, bx0, 2, 2, 0);
+            }
+
+            for (int b8 = 0; b8 < 4; b8++) {
+                int bit = (cbp_l >> b8) & 1;
+                e.encode(*cx.cbp_l[st.cbp_luma_ctx(mbx, mby, b8)], bit);
+                st.set_cbp_luma8(mbx, mby, b8, bit);
+            }
+            e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 0)],
+                     cbp_c > 0 ? 1 : 0);
+            if (cbp_c > 0)
+                e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 1)],
+                         cbp_c == 2 ? 1 : 0);
+            st.cbp_chroma[mb] = cbp_c;
+            bool t8f = t8 && t8[mb];
+            if (cbp_l > 0 && transform_8x8)
+                e.encode(*cx.t8flag[st.t8_ctx(mbx, mby)], t8f ? 1 : 0);
+            st.t8[mb] = t8f ? 1 : 0;
+            if (cbp_l || cbp_c) e.encode(*cx.qp_delta[0], 0);
+            p_residual(e, cx, st, mbx, mby, cbp_l, cbp_c, zl, cdc, cac,
+                       t8f);
+            e.terminate(last ? 1 : 0);
+        }
+    }
+    std::vector<uint8_t>& buf = bw.buf;
+    e.flush_to(buf);
+    if ((int64_t)buf.size() > out_cap) return -1;
+    std::memcpy(out, buf.data(), buf.size());
+    return (int64_t)buf.size();
+}
+
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
@@ -1006,7 +1277,357 @@ void encode_mb_i8(CabacEnc& e, H264Ctxs& cx, MbState& st, int mbx,
     }
 }
 
+
+// decoder-exact MV prediction over (mv8, ref8, dec8) — mirrors
+// codec.h264.mvpred (spec 8.4.1.3, single-ref P usage).
+struct NbP { int x, y, ref; bool ok; };
+
+static NbP getp(const int32_t* mv8, const int8_t* ref8,
+                const uint8_t* dec8, int nbx2, int by, int bx) {
+    if (by < 0 || bx < 0 || bx >= nbx2) return {0, 0, -1, false};
+    size_t i = (size_t)by * nbx2 + bx;
+    if (!dec8[i]) return {0, 0, -1, false};
+    return {mv8[2 * i + 0], mv8[2 * i + 1], ref8[i], true};
+}
+
+static void nbsp(const int32_t* mv8, const int8_t* ref8,
+                 const uint8_t* dec8, int nbx2, int by, int bx, int pw,
+                 NbP* a, NbP* b, NbP* c) {
+    *a = getp(mv8, ref8, dec8, nbx2, by, bx - 1);
+    *b = getp(mv8, ref8, dec8, nbx2, by - 1, bx);
+    *c = getp(mv8, ref8, dec8, nbx2, by - 1, bx + pw);
+    if (!c->ok) *c = getp(mv8, ref8, dec8, nbx2, by - 1, bx - 1);
+}
+
+static void mv_pred_state(const int32_t* mv8, const int8_t* ref8,
+                          const uint8_t* dec8, int nbx2, int by, int bx,
+                          int pw, int ph, int part_idx, int out[2]) {
+    NbP a, b, c;
+    nbsp(mv8, ref8, dec8, nbx2, by, bx, pw, &a, &b, &c);
+    if (pw == 2 && ph == 1) {
+        if (part_idx == 0 && b.ok && b.ref == 0) {
+            out[0] = b.x; out[1] = b.y; return; }
+        if (part_idx == 1 && a.ok && a.ref == 0) {
+            out[0] = a.x; out[1] = a.y; return; }
+    } else if (pw == 1 && ph == 2) {
+        if (part_idx == 0 && a.ok && a.ref == 0) {
+            out[0] = a.x; out[1] = a.y; return; }
+        if (part_idx == 1 && c.ok && c.ref == 0) {
+            out[0] = c.x; out[1] = c.y; return; }
+    }
+    if (!b.ok && !c.ok && a.ok) { out[0] = a.x; out[1] = a.y; return; }
+    int hits = (a.ok && a.ref == 0) + (b.ok && b.ref == 0)
+        + (c.ok && c.ref == 0);
+    if (hits == 1) {
+        const NbP& m = (a.ok && a.ref == 0) ? a
+            : ((b.ok && b.ref == 0) ? b : c);
+        out[0] = m.x; out[1] = m.y; return;
+    }
+    auto med3 = [](int u, int v, int w) {
+        int lo = u < v ? u : v, hi = u < v ? v : u;
+        return w < lo ? lo : (w > hi ? hi : w);
+    };
+    int ax = a.ok ? a.x : 0, ay = a.ok ? a.y : 0;
+    int bx2 = b.ok ? b.x : 0, by2 = b.ok ? b.y : 0;
+    int cx2 = c.ok ? c.x : 0, cy2 = c.ok ? c.y : 0;
+    out[0] = med3(ax, bx2, cx2);
+    out[1] = med3(ay, by2, cy2);
+}
+
+static void p_skip_mv_state(const int32_t* mv8, const int8_t* ref8,
+                            const uint8_t* dec8, int nbx2, int mby,
+                            int mbx, int out[2]) {
+    // mvpred.p_skip_mv: A or B out-of-picture/undecoded -> 0; A or B
+    // inter-ref0 with zero mv -> 0; else median pred (intra neighbors
+    // participate as (0,0) ref -1)
+    int by = 2 * mby, bx = 2 * mbx;
+    NbP a, b, c;
+    nbsp(mv8, ref8, dec8, nbx2, by, bx, 2, &a, &b, &c);
+    if (!a.ok || !b.ok) { out[0] = out[1] = 0; return; }
+    if ((a.ref == 0 && a.x == 0 && a.y == 0)
+        || (b.ref == 0 && b.x == 0 && b.y == 0)) {
+        out[0] = out[1] = 0; return;
+    }
+    mv_pred_state(mv8, ref8, dec8, nbx2, by, bx, 2, 2, 0, out);
+}
+
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// CABAC B slice — native counterpart of cabac_syntax.write_bslice_cabac
+// (B_Skip / B_Direct_16x16 / B_L0/L1/Bi_16x16, spatial direct, two-list
+// mvd, non-reference picture). Bit-identical to the Python writer
+// (pinned by tests/test_native_entropy.py).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Decoder-semantics neighbor for one reference list (pframe.
+// _mv_neighbors_dec): positions outside the picture are absent; an
+// in-picture MB not using the list IS present with mv (0,0), ref -1.
+struct NbB { int x, y, ref; bool pos; };
+
+static NbB getb(const int32_t* mv_xy, const uint8_t* use, int n_mbx,
+                int x, int y) {
+    if (x < 0 || y < 0 || x >= n_mbx) return {0, 0, -1, false};
+    size_t i = (size_t)y * n_mbx + x;
+    if (!use[i]) return {0, 0, -1, true};
+    return {mv_xy[2 * i + 0], mv_xy[2 * i + 1], 0, true};
+}
+
+static void nbs_decb(const int32_t* mv, const uint8_t* use, int n_mbx,
+                     int mbx, int mby, NbB* a, NbB* b, NbB* c) {
+    *a = getb(mv, use, n_mbx, mbx - 1, mby);
+    *b = getb(mv, use, n_mbx, mbx, mby - 1);
+    if (mby > 0 && mbx + 1 < n_mbx)
+        *c = getb(mv, use, n_mbx, mbx + 1, mby - 1);
+    else
+        *c = {0, 0, -1, false};
+    if (!c->pos) *c = getb(mv, use, n_mbx, mbx - 1, mby - 1);
+}
+
+static void mv_pred_decb(const int32_t* mv, const uint8_t* use, int n_mbx,
+                         int mbx, int mby, int out[2]) {
+    NbB a, b, c;
+    nbs_decb(mv, use, n_mbx, mbx, mby, &a, &b, &c);
+    if (!b.pos && !c.pos && a.pos) { out[0] = a.x; out[1] = a.y; return; }
+    int hits = (a.pos && a.ref == 0) + (b.pos && b.ref == 0)
+        + (c.pos && c.ref == 0);
+    if (hits == 1) {
+        const NbB& m = (a.pos && a.ref == 0) ? a
+            : ((b.pos && b.ref == 0) ? b : c);
+        out[0] = m.x; out[1] = m.y; return;
+    }
+    auto med3 = [](int u, int v, int w) {
+        int lo = u < v ? u : v, hi = u < v ? v : u;
+        return w < lo ? lo : (w > hi ? hi : w);
+    };
+    int ax = a.pos ? a.x : 0, ay = a.pos ? a.y : 0;
+    int bx2 = b.pos ? b.x : 0, by2 = b.pos ? b.y : 0;
+    int cx2 = c.pos ? c.x : 0, cy2 = c.pos ? c.y : 0;
+    out[0] = med3(ax, bx2, cx2);
+    out[1] = med3(ay, by2, cy2);
+}
+
+// bframe.direct_spatial: MB-level spatial direct derivation. Returns
+// (use0, use1) and fills mv0/mv1 for the used lists.
+static void direct_spatialc(const int32_t* mv0, const int32_t* mv1,
+                            const uint8_t* use0, const uint8_t* use1,
+                            int n_mbx, int mbx, int mby, int col_zero,
+                            bool* u0, bool* u1, int dmv0[2], int dmv1[2]) {
+    NbB a0, b0, c0, a1, b1, c1;
+    nbs_decb(mv0, use0, n_mbx, mbx, mby, &a0, &b0, &c0);
+    nbs_decb(mv1, use1, n_mbx, mbx, mby, &a1, &b1, &c1);
+    int r0 = ((a0.pos && a0.ref == 0) || (b0.pos && b0.ref == 0)
+              || (c0.pos && c0.ref == 0)) ? 0 : -1;
+    int r1 = ((a1.pos && a1.ref == 0) || (b1.pos && b1.ref == 0)
+              || (c1.pos && c1.ref == 0)) ? 0 : -1;
+    if (r0 < 0 && r1 < 0) {          // directZeroPredictionFlag
+        *u0 = *u1 = true;
+        dmv0[0] = dmv0[1] = dmv1[0] = dmv1[1] = 0;
+        return;
+    }
+    *u0 = r0 >= 0;
+    *u1 = r1 >= 0;
+    if (*u0) {
+        if (col_zero) dmv0[0] = dmv0[1] = 0;
+        else mv_pred_decb(mv0, use0, n_mbx, mbx, mby, dmv0);
+    }
+    if (*u1) {
+        if (col_zero) dmv1[0] = dmv1[1] = 0;
+        else mv_pred_decb(mv1, use1, n_mbx, mbx, mby, dmv1);
+    }
+}
+
+}  // namespace
+
+extern "C" int64_t vcp_write_bslice_cabac(
+    int n_mby, int n_mbx, int qp, int init_qp, int frame_num_bits,
+    int frame_num, int deblock_idc, int poc_bits, int poc_lsb,
+    int transform_8x8,
+    const int32_t* mv0_xy, const int32_t* mv1_xy,   // (nMB, 2) [x, y] qpel
+    const int32_t* mode,                            // 0=L0 1=L1 2=Bi
+    const uint8_t* col_zero, const uint8_t* col_safe,
+    const int32_t* luma, const int32_t* cb_dc, const int32_t* cb_ac,
+    const int32_t* cr_dc, const int32_t* cr_ac,
+    uint8_t* out, int64_t out_cap) {
+    size_t n_mb = (size_t)n_mby * n_mbx;
+    HdrWriter bw;
+    // headers.write_slice_header, slice_type "B", non-reference
+    bw.ue(0);                          // first_mb_in_slice
+    bw.ue(6);                          // slice_type B-all
+    bw.ue(0);                          // pps id
+    bw.u(frame_num_bits,
+         (uint32_t)(frame_num & ((1 << frame_num_bits) - 1)));
+    if (poc_bits > 0)
+        bw.u(poc_bits, (uint32_t)(poc_lsb & ((1 << poc_bits) - 1)));
+    bw.u(1, 1);                        // direct_spatial_mv_pred_flag
+    bw.u(1, 0);                        // num_ref_idx_active_override
+    bw.u(1, 0);                        // ref_pic_list_modification_l0
+    bw.u(1, 0);                        // ref_pic_list_modification_l1
+    // nal_ref_idc 0: no dec_ref_pic_marking
+    bw.ue(0);                          // cabac_init_idc
+    bw.se(qp - init_qp);               // slice_qp_delta
+    bw.ue((uint32_t)deblock_idc);
+    if (deblock_idc != 1) { bw.se(0); bw.se(0); }
+    bw.align_ones();
+
+    CabacEnc e;
+    e.bits.reserve(n_mb * 64);
+    H264Ctxs cx(qp, true);
+    MbState st(n_mby, n_mbx);
+    std::vector<uint8_t> bdirect(n_mb, 0);
+    std::vector<int32_t> absmvd_b(n_mb * 4, 0);     // (nMB, lst, comp)
+    std::vector<uint8_t> use0(n_mb), use1(n_mb);
+    for (size_t i = 0; i < n_mb; i++) {
+        use0[i] = mode[i] != 1 ? 1 : 0;
+        use1[i] = mode[i] != 0 ? 1 : 0;
+    }
+
+    auto mbt_b_ctx = [&](int mbx, int mby) {
+        int ca = (mbx > 0 && st.avail[st.mb(mbx - 1, mby)]
+                  && !st.skip[st.mb(mbx - 1, mby)]
+                  && !bdirect[st.mb(mbx - 1, mby)]) ? 1 : 0;
+        int cb = (mby > 0 && st.avail[st.mb(mbx, mby - 1)]
+                  && !st.skip[st.mb(mbx, mby - 1)]
+                  && !bdirect[st.mb(mbx, mby - 1)]) ? 1 : 0;
+        return ca + cb;
+    };
+    auto mvd_ctx_b = [&](int mbx, int mby, int lst, int comp) {
+        int s = 0;
+        if (mbx > 0 && st.avail[st.mb(mbx - 1, mby)])
+            s += absmvd_b[4 * st.mb(mbx - 1, mby) + 2 * lst + comp];
+        if (mby > 0 && st.avail[st.mb(mbx, mby - 1)])
+            s += absmvd_b[4 * st.mb(mbx, mby - 1) + 2 * lst + comp];
+        return s < 3 ? 0 : (s <= 32 ? 1 : 2);
+    };
+    auto encode_mvd_b = [&](int mbx, int mby, int lst, int comp, int mvd) {
+        int v = mvd < 0 ? -mvd : mvd;
+        int b0 = mvd_ctx_b(mbx, mby, lst, comp);
+        Ctx** row = cx.mvd[comp];
+        auto ctx_of = [&](int b) {
+            return b == 0 ? b0 : (2 + b < 6 ? 2 + b : 6);
+        };
+        int prefix = v < 9 ? v : 9;
+        for (int b = 0; b < prefix; b++) e.encode(*row[ctx_of(b)], 1);
+        if (prefix < 9) e.encode(*row[ctx_of(prefix)], 0);
+        else write_egk(e, (uint32_t)(v - 9), 3);
+        if (v) e.bypass(mvd < 0 ? 1 : 0);
+    };
+
+    for (int mby = 0; mby < n_mby; mby++) {
+        for (int mbx = 0; mbx < n_mbx; mbx++) {
+            size_t mb = st.mb(mbx, mby);
+            const int32_t* zl = luma + mb * 256;
+            const int32_t* cdc[2] = {cb_dc + mb * 4, cr_dc + mb * 4};
+            const int32_t* cac[2] = {cb_ac + mb * 64, cr_ac + mb * 64};
+            int cbp_l = 0;
+            for (int blk = 0; blk < 16; blk++)
+                for (int k = 0; k < 16; k++)
+                    if (zl[blk * 16 + k]) { cbp_l |= 1 << (blk / 4); break; }
+            bool any_cac = false, any_cdc = false;
+            for (int c = 0; c < 2; c++) {
+                for (int k = 0; k < 4; k++) if (cdc[c][k]) any_cdc = true;
+                for (int blk = 0; blk < 4; blk++)
+                    for (int k = 1; k < 16; k++)
+                        if (cac[c][blk * 16 + k]) any_cac = true;
+            }
+            int cbp_c = any_cac ? 2 : (any_cdc ? 1 : 0);
+            int md = mode[mb];
+
+            // direct_ok: spatial direct reproduces (mode, mv0, mv1)
+            bool direct_ok = col_safe[mb] != 0;
+            if (direct_ok) {
+                bool u0, u1;
+                int dmv0[2], dmv1[2];
+                direct_spatialc(mv0_xy, mv1_xy, use0.data(), use1.data(),
+                                n_mbx, mbx, mby, col_zero[mb],
+                                &u0, &u1, dmv0, dmv1);
+                int dmd = (u0 && u1) ? 2 : (u1 ? 1 : 0);
+                if (dmd != md) direct_ok = false;
+                if (direct_ok && u0 &&
+                    (dmv0[0] != mv0_xy[2 * mb] ||
+                     dmv0[1] != mv0_xy[2 * mb + 1])) direct_ok = false;
+                if (direct_ok && u1 &&
+                    (dmv1[0] != mv1_xy[2 * mb] ||
+                     dmv1[1] != mv1_xy[2 * mb + 1])) direct_ok = false;
+            }
+            bool is_skip = cbp_l == 0 && cbp_c == 0 && direct_ok;
+            e.encode(*cx.skip_b[st.skip_ctx(mbx, mby)], is_skip ? 1 : 0);
+            st.avail[mb] = 1;
+            st.skip[mb] = is_skip ? 1 : 0;
+            bool last = (mby == n_mby - 1) && (mbx == n_mbx - 1);
+            if (is_skip) {
+                st.fill_cbp_luma8(mbx, mby, 0);
+                st.cbp_chroma[mb] = 0;
+                e.terminate(last ? 1 : 0);
+                continue;
+            }
+            if (direct_ok) {
+                // B_Direct_16x16: bin0 = 0, motion derived, no mvd
+                e.encode(*cx.mbt_b[mbt_b_ctx(mbx, mby)], 0);
+                bdirect[mb] = 1;
+            } else {
+                // mb_type (Table 9-37): bin0 = 1, then '0'+list bin for
+                // L0/L1 or '1' + 4 fixed zero bins for B_Bi_16x16
+                e.encode(*cx.mbt_b[mbt_b_ctx(mbx, mby)], 1);
+                if (md < 2) {
+                    e.encode(*cx.mbt_b_fix[0], 0);
+                    e.encode(*cx.mbt_b_fix[2], md);
+                } else {
+                    e.encode(*cx.mbt_b_fix[0], 1);
+                    e.encode(*cx.mbt_b_fix[1], 0);
+                    e.encode(*cx.mbt_b_fix[2], 0);
+                    e.encode(*cx.mbt_b_fix[2], 0);
+                    e.encode(*cx.mbt_b_fix[2], 0);
+                }
+                for (int lst = 0; lst < 2; lst++) {
+                    const uint8_t* use = lst ? use1.data() : use0.data();
+                    const int32_t* mvl = lst ? mv1_xy : mv0_xy;
+                    if (!use[mb]) continue;
+                    int pred[2];
+                    mv_pred_decb(mvl, use, n_mbx, mbx, mby, pred);
+                    int mvd_x = mvl[2 * mb + 0] - pred[0];
+                    int mvd_y = mvl[2 * mb + 1] - pred[1];
+                    encode_mvd_b(mbx, mby, lst, 0, mvd_x);
+                    encode_mvd_b(mbx, mby, lst, 1, mvd_y);
+                    absmvd_b[4 * mb + 2 * lst + 0] =
+                        mvd_x < 0 ? -mvd_x : mvd_x;
+                    absmvd_b[4 * mb + 2 * lst + 1] =
+                        mvd_y < 0 ? -mvd_y : mvd_y;
+                }
+            }
+            for (int b8 = 0; b8 < 4; b8++) {
+                int bit = (cbp_l >> b8) & 1;
+                e.encode(*cx.cbp_l[st.cbp_luma_ctx(mbx, mby, b8)], bit);
+                st.set_cbp_luma8(mbx, mby, b8, bit);
+            }
+            e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 0)],
+                     cbp_c > 0 ? 1 : 0);
+            if (cbp_c > 0)
+                e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 1)],
+                         cbp_c == 2 ? 1 : 0);
+            st.cbp_chroma[mb] = cbp_c;
+            if (cbp_l > 0 && transform_8x8) {
+                // B pictures keep the 4x4 transform; flag still coded
+                e.encode(*cx.t8flag[st.t8_ctx(mbx, mby)], 0);
+            }
+            if (cbp_l || cbp_c) e.encode(*cx.qp_delta[0], 0);
+            p_residual(e, cx, st, mbx, mby, cbp_l, cbp_c, zl, cdc, cac,
+                       false);
+            e.terminate(last ? 1 : 0);
+        }
+    }
+    std::vector<uint8_t>& buf = bw.buf;
+    e.flush_to(buf);
+    if ((int64_t)buf.size() > out_cap) return -1;
+    std::memcpy(out, buf.data(), buf.size());
+    return (int64_t)buf.size();
+}
+
+// CABAC IDR slice with mixed I16 / I_NxN-i8 macroblocks (the RD-intra
+// rd8 wavefront's output; cabac_syntax.write_islice_cabac with "i8").
+
 
 extern "C" {
 
@@ -1067,6 +1688,237 @@ int64_t vcp_write_islice_cabac_i8(
             }
             st.avail[mb] = 1;
             bool last = (mby == n_mby - 1) && (mbx == n_mbx - 1);
+            e.terminate(last ? 1 : 0);
+        }
+    }
+    std::vector<uint8_t>& buf = bw.buf;
+    e.flush_to(buf);
+    if ((int64_t)buf.size() > out_cap) return -1;
+    std::memcpy(out, buf.data(), buf.size());
+    return (int64_t)buf.size();
+}
+
+// Partitioned CABAC P slice WITH intra macroblocks — native counterpart
+// of cabac_syntax.write_pslice_cabac_intra (decoder-exact MV state).
+int64_t vcp_write_pslice_cabac_intra(
+    int n_mby, int n_mbx, int qp, int init_qp, int frame_num_bits,
+    int frame_num, int deblock_idc, int poc_bits, int poc_lsb,
+    const uint8_t* t8, int transform_8x8,
+    const uint8_t* intra, const uint8_t* i8,
+    const int32_t* imodes, const int32_t* icmodes,
+    const int32_t* luma_dc, const int32_t* i8_modes,
+    const int32_t* mv8_xy, const int32_t* parts,
+    const int32_t* luma,
+    const int32_t* cb_dc, const int32_t* cb_ac,
+    const int32_t* cr_dc, const int32_t* cr_ac,
+    uint8_t* out, int64_t out_cap) {
+    int nbx2 = 2 * n_mbx;
+    HdrWriter bw;
+    cabac_slice_header(bw, false, frame_num_bits, frame_num, 0, qp,
+                       init_qp, deblock_idc, poc_bits, poc_lsb);
+    bw.align_ones();
+
+    CabacEnc e;
+    e.bits.reserve((size_t)n_mby * n_mbx * 160);
+    H264Ctxs cx(qp, true);
+    MbState st(n_mby, n_mbx);
+    std::vector<int8_t> i4g((size_t)16 * n_mby * n_mbx, -1);
+    // decoder-exact MV state
+    std::vector<int32_t> mv8g((size_t)2 * n_mby * nbx2 * 2, 0);
+    std::vector<int8_t> ref8g((size_t)2 * n_mby * nbx2, -1);
+    std::vector<uint8_t> dec8g((size_t)2 * n_mby * nbx2, 0);
+    // per-8x8 |mvd| grid for the mvd contexts (mvd_ctx8)
+    std::vector<int32_t> absmvd8((size_t)2 * n_mby * nbx2 * 2, 0);
+
+    auto mark = [&](int by, int bx, int ph, int pw, int mx, int my,
+                    int8_t ref) {
+        for (int dy = 0; dy < ph; dy++)
+            for (int dx = 0; dx < pw; dx++) {
+                size_t i = (size_t)(by + dy) * nbx2 + bx + dx;
+                mv8g[2 * i + 0] = mx;
+                mv8g[2 * i + 1] = my;
+                ref8g[i] = ref;
+                dec8g[i] = 1;
+            }
+    };
+
+    const int PT_GEO[3][2][4] = {      // pframe._P_PARTS for pt 1, 2
+        {{0, 0, 2, 1}, {1, 0, 2, 1}},  // 16x8: (dy, dx, pw, ph)
+        {{0, 0, 1, 2}, {0, 1, 1, 2}},
+        {{0, 0, 0, 0}, {0, 0, 0, 0}},
+    };
+
+    for (int mby = 0; mby < n_mby; mby++) {
+        for (int mbx = 0; mbx < n_mbx; mbx++) {
+            size_t mb = (size_t)mby * n_mbx + mbx;
+            int by0 = 2 * mby, bx0 = 2 * mbx;
+            bool last = (mby == n_mby - 1) && (mbx == n_mbx - 1);
+            const int32_t* zl = luma + mb * 256;
+            const int32_t* cdc[2] = {cb_dc + mb * 4, cr_dc + mb * 4};
+            const int32_t* cac[2] = {cb_ac + mb * 64, cr_ac + mb * 64};
+            if (intra[mb]) {
+                e.encode(*cx.skip[st.skip_ctx(mbx, mby)], 0);
+                st.avail[mb] = 1;
+                if (i8[mb]) {
+                    encode_mb_i8(e, cx, st, mbx, mby, i8_modes + mb * 4,
+                                 zl, cdc, cac, i4g.data(), icmodes[mb],
+                                 true);
+                } else {
+                    bool cbp_luma15 = false;
+                    for (int blk = 0; blk < 16 && !cbp_luma15; blk++)
+                        for (int k = 1; k < 16; k++)
+                            if (zl[blk * 16 + k]) {
+                                cbp_luma15 = true; break;
+                            }
+                    bool any_cac = false, any_cdc = false;
+                    for (int c = 0; c < 2; c++) {
+                        for (int k = 0; k < 4; k++)
+                            if (cdc[c][k]) any_cdc = true;
+                        for (int blk = 0; blk < 4; blk++)
+                            for (int k = 1; k < 16; k++)
+                                if (cac[c][blk * 16 + k]) any_cac = true;
+                    }
+                    int cbp_chroma = any_cac ? 2 : (any_cdc ? 1 : 0);
+                    e.encode(*cx.mbt_p[0], 1);       // intra prefix
+                    encode_mb_i16(e, cx, st, mbx, mby, imodes[mb],
+                                  icmodes[mb], cbp_luma15, cbp_chroma);
+                    e.encode(*cx.qp_delta[0], 0);
+                    mb_i16_residual(e, cx, st, mbx, mby, cbp_luma15,
+                                    cbp_chroma, luma_dc + mb * 16, zl,
+                                    cdc, cac);
+                }
+                mark(by0, bx0, 2, 2, 0, 0, -1);
+                e.terminate(last ? 1 : 0);
+                continue;
+            }
+            int pt = parts[mb];
+            int m[2] = {mv8_xy[2 * ((size_t)by0 * nbx2 + bx0) + 0],
+                        mv8_xy[2 * ((size_t)by0 * nbx2 + bx0) + 1]};
+            int cbp_l = 0;
+            for (int blk = 0; blk < 16; blk++)
+                for (int k = 0; k < 16; k++)
+                    if (zl[blk * 16 + k]) { cbp_l |= 1 << (blk / 4); break; }
+            bool any_cac = false, any_cdc = false;
+            for (int c = 0; c < 2; c++) {
+                for (int k = 0; k < 4; k++) if (cdc[c][k]) any_cdc = true;
+                for (int blk = 0; blk < 4; blk++)
+                    for (int k = 1; k < 16; k++)
+                        if (cac[c][blk * 16 + k]) any_cac = true;
+            }
+            int cbp_c = any_cac ? 2 : (any_cdc ? 1 : 0);
+            bool is_skip = false;
+            if (pt == 0) {
+                int smv[2];
+                p_skip_mv_state(mv8g.data(), ref8g.data(), dec8g.data(),
+                                nbx2, mby, mbx, smv);
+                is_skip = cbp_l == 0 && cbp_c == 0 && smv[0] == m[0]
+                    && smv[1] == m[1];
+            }
+            e.encode(*cx.skip[st.skip_ctx(mbx, mby)], is_skip ? 1 : 0);
+            st.avail[mb] = 1;
+            st.skip[mb] = is_skip ? 1 : 0;
+            if (is_skip) {
+                st.fill_cbp_luma8(mbx, mby, 0);
+                st.cbp_chroma[mb] = 0;
+                mark(by0, bx0, 2, 2, m[0], m[1], 0);
+                e.terminate(last ? 1 : 0);
+                continue;
+            }
+            auto enc_mvd8_here = [&](int by, int bx, int comp, int mvd) {
+                int c0 = mvd_ctx8(absmvd8.data(), st.avail.data(), n_mbx,
+                                  nbx2, by, bx, comp);
+                encode_mvd8(e, cx, c0, comp, mvd);
+            };
+            auto set_absmvd8 = [&](int by, int bx, int ph, int pw,
+                                   int ax, int ay) {
+                for (int dy = 0; dy < ph; dy++)
+                    for (int dx = 0; dx < pw; dx++) {
+                        size_t i = (size_t)(by + dy) * nbx2 + bx + dx;
+                        absmvd8[2 * i + 0] = ax;
+                        absmvd8[2 * i + 1] = ay;
+                    }
+            };
+            if (pt == 3) {
+                e.encode(*cx.mbt_p[0], 0);
+                e.encode(*cx.mbt_p[1], 0);
+                e.encode(*cx.mbt_p[2], 1);
+                for (int q = 0; q < 4; q++)
+                    e.encode(cx.g[21], 1);           // sub_mb_type P_L0_8x8
+                for (int q = 0; q < 4; q++) {
+                    int by = by0 + (q >> 1), bx = bx0 + (q & 1);
+                    size_t bi = (size_t)by * nbx2 + bx;
+                    int pred[2];
+                    mv_pred_state(mv8g.data(), ref8g.data(), dec8g.data(),
+                                  nbx2, by, bx, 1, 1, q, pred);
+                    int mvd0 = mv8_xy[2 * bi + 0] - pred[0];
+                    int mvd1 = mv8_xy[2 * bi + 1] - pred[1];
+                    enc_mvd8_here(by, bx, 0, mvd0);
+                    enc_mvd8_here(by, bx, 1, mvd1);
+                    set_absmvd8(by, bx, 1, 1,
+                                mvd0 < 0 ? -mvd0 : mvd0,
+                                mvd1 < 0 ? -mvd1 : mvd1);
+                    mark(by, bx, 1, 1, mv8_xy[2 * bi + 0],
+                         mv8_xy[2 * bi + 1], 0);
+                }
+            } else if (pt == 1 || pt == 2) {
+                e.encode(*cx.mbt_p[0], 0);
+                e.encode(*cx.mbt_p[1], 1);
+                // bin2 ctx 17 (mbt_p_alt): 16x8 -> 1, 8x16 -> 0
+                e.encode(cx.g[17], pt == 1 ? 1 : 0);
+                for (int i = 0; i < 2; i++) {
+                    int dy = PT_GEO[pt - 1][i][0];
+                    int dx = PT_GEO[pt - 1][i][1];
+                    int pw = PT_GEO[pt - 1][i][2];
+                    int ph = PT_GEO[pt - 1][i][3];
+                    int by = by0 + dy, bx = bx0 + dx;
+                    size_t bi = (size_t)by * nbx2 + bx;
+                    int pred[2];
+                    mv_pred_state(mv8g.data(), ref8g.data(), dec8g.data(),
+                                  nbx2, by, bx, pw, ph, i, pred);
+                    int mvd0 = mv8_xy[2 * bi + 0] - pred[0];
+                    int mvd1 = mv8_xy[2 * bi + 1] - pred[1];
+                    enc_mvd8_here(by, bx, 0, mvd0);
+                    enc_mvd8_here(by, bx, 1, mvd1);
+                    set_absmvd8(by, bx, ph, pw,
+                                mvd0 < 0 ? -mvd0 : mvd0,
+                                mvd1 < 0 ? -mvd1 : mvd1);
+                    mark(by, bx, ph, pw, mv8_xy[2 * bi + 0],
+                         mv8_xy[2 * bi + 1], 0);
+                }
+            } else {
+                e.encode(*cx.mbt_p[0], 0);
+                e.encode(*cx.mbt_p[1], 0);
+                e.encode(*cx.mbt_p[2], 0);
+                int pred[2];
+                mv_pred_state(mv8g.data(), ref8g.data(), dec8g.data(),
+                              nbx2, by0, bx0, 2, 2, 0, pred);
+                int mvd0 = m[0] - pred[0];
+                int mvd1 = m[1] - pred[1];
+                enc_mvd8_here(by0, bx0, 0, mvd0);
+                enc_mvd8_here(by0, bx0, 1, mvd1);
+                set_absmvd8(by0, bx0, 2, 2,
+                            mvd0 < 0 ? -mvd0 : mvd0,
+                            mvd1 < 0 ? -mvd1 : mvd1);
+                mark(by0, bx0, 2, 2, m[0], m[1], 0);
+            }
+            for (int b8 = 0; b8 < 4; b8++) {
+                int bit = (cbp_l >> b8) & 1;
+                e.encode(*cx.cbp_l[st.cbp_luma_ctx(mbx, mby, b8)], bit);
+                st.set_cbp_luma8(mbx, mby, b8, bit);
+            }
+            e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 0)],
+                     cbp_c > 0 ? 1 : 0);
+            if (cbp_c > 0)
+                e.encode(*cx.cbp_c[st.cbp_chroma_ctx(mbx, mby, 1)],
+                         cbp_c == 2 ? 1 : 0);
+            st.cbp_chroma[mb] = cbp_c;
+            bool t8f = t8 && t8[mb];
+            if (cbp_l > 0 && transform_8x8)
+                e.encode(*cx.t8flag[st.t8_ctx(mbx, mby)], t8f ? 1 : 0);
+            st.t8[mb] = t8f ? 1 : 0;
+            if (cbp_l || cbp_c) e.encode(*cx.qp_delta[0], 0);
+            p_residual(e, cx, st, mbx, mby, cbp_l, cbp_c, zl, cdc, cac,
+                       t8f);
             e.terminate(last ? 1 : 0);
         }
     }

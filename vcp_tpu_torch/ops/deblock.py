@@ -137,23 +137,37 @@ def _rep2(a: torch.Tensor, f: int) -> torch.Tensor:
     return a.repeat_interleave(f, 0).repeat_interleave(f, 1)
 
 
+def _mv_differ(a: torch.Tensor) -> torch.Tensor:
+    """Across each edge of a per-block vector grid (bh, bw, 2): does a
+    component differ by >= 4 (one luma sample)?"""
+    return ((a[:, :-1] - a[:, 1:]).abs() >= 4).any(dim=-1)
+
+
 def compute_bs_luma(intra_mb: torch.Tensor, nz_blk: torch.Tensor,
-                    mvq: torch.Tensor, vertical: bool,
+                    mvq, vertical: bool,
                     t8: torch.Tensor | None = None) -> torch.Tensor:
     """Boundary strengths of all internal luma edges in one direction.
 
     intra_mb (nMBy, nMBx) bool; nz_blk (H/4, W/4) bool (block has
-    residual); mvq (nMBy, nMBx, 2) quarter-pel. bS is 4 on intra MB
-    edges, 3 on intra internal edges, 2 where either side has residual,
-    1 where a MV component differs by >= 4 (one luma sample), else 0.
-    ``t8`` (nMBy, nMBx) bool flags transform_size_8x8 MBs, whose interior
-    4-offset edges are not filtered (spec 8.7: luma edges fall on the
+    residual); mvq (nMBy, nMBx, 2) quarter-pel, or (2nMBy, 2nMBx, 2) for
+    frames with partitions (one vector per 8x8 block; the granularity is
+    read from the shape), or for B pictures a tuple (mv0, mv1, use) of
+    per-list vectors (nMBy, nMBx, 2) and list-usage flags (nMBy, nMBx, 2)
+    bool. bS is 4 on intra MB edges, 3 on intra internal edges, 2 where
+    either side has residual, 1 where a MV component differs by >= 4
+    (one luma sample) or, in B pictures, where the two sides use
+    different lists (each list is one picture here) or a list both use
+    has vectors that differ so (spec 8.7.2.1), else 0. ``t8`` (nMBy,
+    nMBx) bool flags transform_size_8x8 MBs, whose interior 4-offset
+    edges are not filtered (spec 8.7: luma edges fall on the
     transform-block grid). Returns (n_edges, H/4 or W/4) int32, edge j
     at offset 4*(j+1)."""
+    two_list = isinstance(mvq, tuple)
     if not vertical:
         intra_mb = intra_mb.T
         nz_blk = nz_blk.T
-        mvq = mvq.transpose(0, 1)
+        mvq = (tuple(a.transpose(0, 1) for a in mvq) if two_list
+               else mvq.transpose(0, 1))
         if t8 is not None:
             t8 = t8.T
     bh, bw = nz_blk.shape
@@ -162,8 +176,14 @@ def compute_bs_luma(intra_mb: torch.Tensor, nz_blk: torch.Tensor,
     j = torch.arange(bw - 1, device=nz_blk.device)
     is_mb_edge = ((j + 1) % 4 == 0)[None, :]
     nz_e = nz_blk[:, :-1] | nz_blk[:, 1:]
-    mv_e = _rep2(mvq, bh // mvq.shape[0])
-    mv_diff = ((mv_e[:, :-1] - mv_e[:, 1:]).abs() >= 4).any(dim=-1)
+    if two_list:
+        m0, m1, use = (_rep2(a, 4) for a in mvq)
+        both = use[:, :-1] & use[:, 1:]
+        mv_diff = ((use[:, :-1] != use[:, 1:]).any(dim=-1)
+                   | (both[..., 0] & _mv_differ(m0))
+                   | (both[..., 1] & _mv_differ(m1)))
+    else:
+        mv_diff = _mv_differ(_rep2(mvq, bh // mvq.shape[0]))
     bs = torch.where(
         intra_e, torch.where(is_mb_edge, 4, 3),
         torch.where(nz_e, 2, torch.where(mv_diff, 1, 0)))
@@ -425,8 +445,8 @@ def deblock_frame(y, u, v, qp_mb, intra_mb, nz_y, mvq,
     """Full in-loop filter of one reconstructed frame in spec order.
 
     y (H, W) int32; u, v (H/2, W/2); qp_mb (nMBy, nMBx) int32; intra_mb
-    bool; nz_y (H/4, W/4) bool; mvq (nMBy, nMBx, 2) quarter-pel; t8
-    (nMBy, nMBx) bool or None, see ``compute_bs_luma``.
+    bool; nz_y (H/4, W/4) bool; mvq and t8 (nMBy, nMBx) bool or None as
+    for ``compute_bs_luma``.
     ``no_strong=True`` with ``qp_scalar`` (every qp_mb entry equal to it,
     no intra MB) takes the uniform-QP form; otherwise the general form,
     with the strong filter unless ``no_strong``."""

@@ -9,10 +9,13 @@ MC, the plain version of the kernel's fused prediction), ``mc_chroma_q``
 the quality presets: ``half_planes`` (spec 8.4.2.2.1 6-tap planes),
 ``aligned_windows`` + ``refine_half_mc`` (fused half-pel refinement and
 MC from one window gather), their unfused pair ``refine_half`` +
-``mc_luma_h``, and ``hier_search`` (the two-level pyramid full-pel search
-that wide windows take instead of the exhaustive one). Everything but
-the exhaustive search runs as plain tensor code on every device. All
-int32-exact.
+``mc_luma_h``, ``mc_luma_uniform`` (MC of one frame-wide vector), and
+``hier_search`` (the two-level pyramid full-pel search that wide windows
+take instead of the exhaustive one). The partitioned P step searches
+every granularity (16x16, 8x8, 16x8, 8x16) at once:
+``full_search_parts`` exhaustively, ``hier_search_parts`` by the
+pyramid. Everything but the 16x16 exhaustive search runs as plain
+tensor code on every device. All int32-exact.
 """
 
 from __future__ import annotations
@@ -62,6 +65,58 @@ def full_search(cur: torch.Tensor, ref: torch.Tensor, search_range: int,
         best_o = torch.where(better, torch.full_like(best_o, o), best_o)
     mv = torch.stack([best_o // side - sr, best_o % side - sr], dim=-1)
     return mv, best_cost
+
+
+def _part_sads(sad8: torch.Tensor):
+    """The 16x16 / 8x8 / 16x8 / 8x16 SADs of one offset from its per-8x8
+    block SADs (2nMBy, 2nMBx): 16x8 halves are block rows, 8x16 halves
+    block columns."""
+    nby2, nbx2 = sad8.shape
+    return (sad8.reshape(nby2 // 2, 2, nbx2 // 2, 2).sum(dim=(1, 3)),
+            sad8, sad8[:, 0::2] + sad8[:, 1::2], sad8[0::2, :] + sad8[1::2, :])
+
+
+def _track_min(best, costs, o: int) -> None:
+    """Keep the first offset of the lowest cost per block, in place, for
+    each granularity: ``best`` is a list of [cost, offset] pairs."""
+    for pair, cost in zip(best, costs):
+        better = cost < pair[0]
+        pair[0] = torch.where(better, cost, pair[0])
+        pair[1] = torch.where(better, o, pair[1])
+
+
+def _part_init(n_mby: int, n_mbx: int, dev):
+    return [[torch.full(shape, 2 ** 30, dtype=torch.int32, device=dev),
+             torch.zeros(shape, dtype=torch.int32, device=dev)]
+            for shape in ((n_mby, n_mbx), (2 * n_mby, 2 * n_mbx),
+                          (2 * n_mby, n_mbx), (n_mby, 2 * n_mbx))]
+
+
+def full_search_parts(cur: torch.Tensor, ref: torch.Tensor,
+                      search_range: int, lam: int = 4):
+    """Full-pel exhaustive search at every partition granularity in one
+    sweep: each offset's absolute differences reduce once per 8x8 block,
+    and the 16x16 / 16x8 / 8x16 SADs are sums of those. Cost = SAD + lam
+    * (|dx| + |dy|), first offset (dy-major) on ties, as ``full_search``.
+    Returns full-pel (mv16 (nMBy, nMBx, 2), mv8 (2nMBy, 2nMBx, 2), mv16x8
+    (2nMBy, nMBx, 2), mv8x16 (nMBy, 2nMBx, 2)), [dy, dx]."""
+    h, w = cur.shape
+    n_mby, n_mbx = h // 16, w // 16
+    sr = search_range
+    side = 2 * sr + 1
+    ref_pad = pad_edge(ref.to(torch.int32), sr, sr, sr, sr)
+    cur_b8 = cur.to(torch.int32).reshape(2 * n_mby, 8, 2 * n_mbx, 8)
+    best = _part_init(n_mby, n_mbx, cur.device)
+    for o in range(side * side):
+        dy = o // side - sr
+        dx = o % side - sr
+        shifted = ref_pad[dy + sr:dy + sr + h, dx + sr:dx + sr + w]
+        sad8 = (cur_b8 - shifted.reshape(cur_b8.shape)).abs() \
+            .sum(dim=(1, 3), dtype=torch.int32)
+        rate = lam * (abs(dx) + abs(dy))
+        _track_min(best, [s + rate for s in _part_sads(sad8)], o)
+    return tuple(torch.stack([bo // side - sr, bo % side - sr], dim=-1)
+                 for _, bo in best)
 
 
 SAD_GROUP = 4           # samples per packed word of the motion_search kernel
@@ -231,30 +286,80 @@ def _coarse_search(cur4: torch.Tensor, ref4: torch.Tensor, sr4: int,
 
 
 def _refine_sweep(cur: torch.Tensor, win4: torch.Tensor,
-                  mv_base: torch.Tensor, lam: int, r: int):
+                  mv_base: torch.Tensor, lam: int, r: int,
+                  track_parts: bool = False):
     """+-r full-pel sweep over per-MB windows (nMBy, 16+2r, nMBx, 16+2r)
-    centered at each MB's base vector. Returns (mv (nMBy, nMBx, 2),
-    best cost); the first offset with the lowest cost wins."""
+    centered at each MB's base vector; the first offset with the lowest
+    cost wins. Returns (mv (nMBy, nMBx, 2), best cost), or with
+    ``track_parts`` the 16x16 / 8x8 / 16x8 / 8x16 winners and costs as
+    two 4-tuples (the ``full_search_parts`` analogue; every block is
+    charged its MB's vector rate)."""
     h, w = cur.shape
     nby, nbx = h // 16, w // 16
     side = 2 * r + 1
     dev = cur.device
     cur_mb = cur.reshape(nby, 16, nbx, 16)
-    best_cost = torch.full((nby, nbx), 2 ** 30, dtype=torch.int32,
-                           device=dev)
-    best_o = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    best = _part_init(nby, nbx, dev)
+    if not track_parts:
+        best = best[:1]
     for o in range(side * side):
         dy, dx = o // side, o % side
-        sad = (cur_mb - win4[:, dy:dy + 16, :, dx:dx + 16]).abs() \
-            .sum(dim=(1, 3), dtype=torch.int32)
-        cost = sad + lam * ((mv_base[..., 1] + (dx - r)).abs()
-                            + (mv_base[..., 0] + (dy - r)).abs())
-        better = cost < best_cost
-        best_cost = torch.where(better, cost, best_cost)
-        best_o = torch.where(better, o, best_o)
-    mv = mv_base + torch.stack([best_o // side - r, best_o % side - r],
-                               dim=-1)
-    return mv, best_cost
+        diff = (cur_mb - win4[:, dy:dy + 16, :, dx:dx + 16]).abs()
+        rate = lam * ((mv_base[..., 1] + (dx - r)).abs()
+                      + (mv_base[..., 0] + (dy - r)).abs())
+        if not track_parts:
+            cost = diff.sum(dim=(1, 3), dtype=torch.int32) + rate
+            _track_min(best, [cost], o)
+            continue
+        sad8 = diff.reshape(nby, 2, 8, nbx, 2, 8) \
+            .sum(dim=(2, 5), dtype=torch.int32).reshape(2 * nby, 2 * nbx)
+        s16, s8, sh, sv = _part_sads(sad8)
+        _track_min(best, [s16 + rate, s8 + _px(rate, 2, 2),
+                          sh + _px(rate, 2, 1), sv + _px(rate, 1, 2)], o)
+    mvs = tuple(_px(mv_base, ry, rx)
+                + torch.stack([bo // side - r, bo % side - r], dim=-1)
+                for (_, bo), (ry, rx) in zip(best, ((1, 1), (2, 2), (2, 1),
+                                                    (1, 2))))
+    costs = tuple(bc for bc, _ in best)
+    if not track_parts:
+        return mvs[0], costs[0]
+    return mvs, costs
+
+
+def _zero_sad(cur: torch.Tensor, ref: torch.Tensor, gran) -> torch.Tensor:
+    """Per-block SAD of the zero vector at granularity 16 / 8 / "h"
+    (16x8) / "v" (8x16)."""
+    h, w = cur.shape
+    sad8 = (cur - ref).abs().reshape(h // 8, 8, w // 8, 8) \
+        .sum(dim=(1, 3), dtype=torch.int32)
+    return _part_sads(sad8)[(16, 8, "h", "v").index(gran)]
+
+
+def _coarse_bases(cur: torch.Tensor, ref: torch.Tensor, sr: int, lam: int):
+    """Both coarse candidates of the pyramid search, clamped so base +
+    refine stays within +-sr."""
+    sr4 = max(1, -(-sr // 4))
+    lim = sr - REFINE_R
+    return [b.clamp(-lim, lim) for b in _coarse_search(
+        _downsample4(cur), _downsample4(ref), sr4, lam)]
+
+
+def _hier_refines(cur, ref, sr: int, lam: int, track_parts: bool):
+    """The +-REFINE_R sweeps around both coarse candidates."""
+    r = REFINE_R
+    pad = sr + r
+    ref_pad = pad_edge(ref, pad, pad, pad, pad)[None]
+    return [_refine_sweep(cur, aligned_windows(ref_pad, b, pad, e=r)[0], b,
+                          lam, r, track_parts)
+            for b in _coarse_bases(cur, ref, sr, lam)]
+
+
+def _pick(mv, cost, mv2, cost2, zero_sad):
+    """The cheaper of the two refines; the zero vector where its SAD is no
+    worse."""
+    mv = torch.where((cost2 < cost)[..., None], mv2, mv)
+    cost = torch.minimum(cost, cost2)
+    return torch.where((zero_sad <= cost)[..., None], 0, mv)
 
 
 def hier_search(cur: torch.Tensor, ref: torch.Tensor, search_range: int,
@@ -265,24 +370,25 @@ def hier_search(cur: torch.Tensor, ref: torch.Tensor, search_range: int,
     per MB (per-block and context vote), clamped so base + refine stays
     within +-search_range; a +-REFINE_R sweep refines around both and the
     cheaper wins; the winner must beat SAD(0, 0) or the vector is 0."""
-    sr, r = search_range, REFINE_R
     cur = cur.to(torch.int32)
     ref = ref.to(torch.int32)
-    sr4 = max(1, -(-sr // 4))
-    lim = sr - r
-    bases = [b.clamp(-lim, lim) for b in _coarse_search(
-        _downsample4(cur), _downsample4(ref), sr4, lam)]
-    pad = sr + r
-    ref_pad = pad_edge(ref, pad, pad, pad, pad)[None]
-    (mv, cost), (mv2, cost2) = (
-        _refine_sweep(cur, aligned_windows(ref_pad, b, pad, e=r)[0], b,
-                      lam, r) for b in bases)
-    mv = torch.where((cost2 < cost)[..., None], mv2, mv)
-    cost = torch.minimum(cost, cost2)
-    h, w = cur.shape
-    zero_sad = (cur - ref).abs().reshape(h // 16, 16, w // 16, 16) \
-        .sum(dim=(1, 3), dtype=torch.int32)
-    return torch.where((zero_sad <= cost)[..., None], 0, mv)
+    (mv, cost), (mv2, cost2) = _hier_refines(cur, ref, search_range, lam,
+                                             False)
+    return _pick(mv, cost, mv2, cost2, _zero_sad(cur, ref, 16))
+
+
+def hier_search_parts(cur: torch.Tensor, ref: torch.Tensor,
+                      search_range: int, lam: int = 4):
+    """Pyramid counterpart of ``full_search_parts``: one coarse 16x16
+    sweep, both refines tracking every partition granularity, each
+    granularity with its own per-block winner and zero-vector fallback.
+    Returns (mv16, mv8, mv16x8, mv8x16) full-pel."""
+    cur = cur.to(torch.int32)
+    ref = ref.to(torch.int32)
+    (mvs, costs), (mvs2, costs2) = _hier_refines(cur, ref, search_range,
+                                                 lam, True)
+    return tuple(_pick(*a, _zero_sad(cur, ref, g)) for *a, g in zip(
+        mvs, costs, mvs2, costs2, (16, 8, "h", "v")))
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +530,22 @@ def refine_half_mc(cur: torch.Tensor, planes: torch.Tensor,
         pred = torch.where(better[:, None, :, None], pr, pred)
         best = torch.minimum(cost, best)
     return mvq, pred.reshape(cur.shape)
+
+
+def mc_luma_uniform(planes: torch.Tensor, g: torch.Tensor, margin: int,
+                    row0: int, h: int, w: int) -> torch.Tensor:
+    """Luma MC for ONE frame-uniform quarter-pel vector ``g`` (2,) [dy,
+    dx] with half-pel phases (g & 1 == 0): equal to ``mc_luma_h`` with a
+    broadcast grid. The window offset stays a device tensor (index
+    arithmetic, no host read)."""
+    dev = planes.device
+    rows = torch.arange(h, device=dev) + (g[0] >> 2) + margin + row0
+    cols = torch.arange(w, device=dev) + (g[1] >> 2) + margin
+    win = planes[:, rows.long()[:, None], cols.long()[None, :]]
+    hx = ((g[1] >> 1) & 1) == 1
+    top = torch.where(hx, win[1], win[0])
+    bot = torch.where(hx, win[3], win[2])
+    return torch.where(((g[0] >> 1) & 1) == 1, bot, top)
 
 
 def mc_luma_h(planes, mvq: torch.Tensor, margin: int, row0: int = 0,
