@@ -32,14 +32,22 @@ counters zeroed just before and read just after:
   search-only kernel, the anchors' through the exhaustive partition
   search);
 * the speed shape with B pictures, ``-c:v h264_nvenc -preset p4 -bf 2``
-  (the fused kernel on the B pictures and the +-24 anchors).
+  (the fused kernel on the B pictures and the +-24 anchors);
+* the shipped preset ``-p h264-nvenc-hq`` (quarter-pel ME at +-16, the
+  same B-GOP tools) on a real MP4 input: the MP4 that the ``h264-cpu``
+  path has just written, demuxed and decoded on the host
+  (``stage_s["decode"]``) and encoded again.
 
 It checks each MP4 (with the composition offsets of B streams), checks
-that the quality paths used the tools they add, checks that a GOP's NAL
+that the quality paths used the tools they add (quarter-pel vectors on
+the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
+and holds it against the synthetic source, checks that a GOP's NAL
 units are byte-identical between ``cuda`` and ``cpu`` (plain versions)
-on the speed path, the quality path without B pictures and a B GOP of
-``h264-cpu``, profiles those GOPs, and prints per-kernel times beside
-their bounds. Any failed phase raises, so the
+on the speed path, the quality path without B pictures, a B GOP of
+``h264-cpu``, a B GOP of ``h264-nvenc-hq`` with ``VCP_HIER_ME=0`` (the
+search-only kernel at +-16 on both B lists) and the chunked quarter-pel
+P path (``-preset p7 -bf 0``), profiles the first three GOPs, and
+prints per-kernel times beside their bounds. Any failed phase raises, so the
 exit code is nonzero; without a CUDA device it exits 2 and prints no
 result. ``--kernels-only`` stops after the kernel checks (a short first
 run after a kernel change) and prints no result line. Imports nothing of
@@ -73,6 +81,8 @@ B_FRAMES = 12                # frames of the paths with B pictures
 B_CUT = 8
 NVENC_B_ARGS = ("-c:v h264_nvenc -preset p4 -bf 2 -b:v 10M "
                 "-movflags +faststart")
+P7_ARGS = "-c:v h264_nvenc -preset p7 -bf 0 -b:v 15M"   # chunked quarter-pel
+DECODE_PSNR_FLOOR_DB = 30.0  # host decode of the h264-cpu MP4 vs its source
 DEVICE = "cuda"              # the device every main path is driven on
 STRESS_SHAPES = ((16, 1920), (1088, 16), (2160, 3840))
 PSNR_FLOOR_DB = 35.0         # recon luma PSNR floor of the first GOP
@@ -707,10 +717,12 @@ def gop_cts(n: int, b: int) -> list[int]:
 
 
 def check_mp4(path: str, n_frames: int, idrs: list[int],
-              cts: list[int] | None = None) -> None:
-    """Top-level boxes, sample count, sample entry, sync samples and the
-    ctts box: present with these per-sample composition offsets (frames)
-    when ``cts`` is given, absent otherwise."""
+              cts: list[int] | None = None,
+              fps: tuple[int, int] = (30, 1)) -> None:
+    """Top-level boxes, sample count, sample entry, sync samples, a
+    frame duration of 1 / ``fps`` (num, den) and the ctts box: present
+    with these per-sample composition offsets (frames) when ``cts`` is
+    given, absent otherwise."""
     import struct
     from vcp_tpu_torch.codec import mp4
     with open(path, "rb") as fh:
@@ -733,11 +745,21 @@ def check_mp4(path: str, n_frames: int, idrs: list[int],
             for i in range(n_sync)]
     if sync != idrs:
         raise AssertionError(f"sync samples {sync}, expected IDRs {idrs}")
+    # ticks per frame: the first stts run's sample delta, which must be
+    # the track timescale over the frame rate (an MP4 input sets the
+    # output's timescale)
+    ps, _ = mp4.find_box(buf, [b"moov", b"trak", b"mdia", b"mdhd"])
+    timescale = struct.unpack_from(">I", buf, ps + 12)[0]
+    dur = struct.unpack_from(">I", buf,
+                             mp4.find_box(buf, stbl + [b"stts"])[0] + 12)[0]
+    if dur * fps[0] != timescale * fps[1]:
+        raise AssertionError(f"stts delta {dur} at timescale {timescale}, "
+                             f"expected {fps[0]}/{fps[1]} fps")
     box = mp4.find_box(buf, stbl + [b"ctts"])
     got = None
     if box is not None:
         ps, _ = box
-        got, dur = [], 1000                     # ticks per frame at 30 fps
+        got = []
         for i in range(struct.unpack_from(">I", buf, ps + 4)[0]):
             n, off = struct.unpack_from(">II", buf, ps + 8 + 8 * i)
             got += [off // dur] * n
@@ -792,7 +814,8 @@ def observe_encoder(seen: dict):
     it: the encoder objects (for ``stage_s``), the share of i8 MBs of
     every IDR, the t8 MBs, half-pel vectors, intra MBs and partitioned
     MBs of every P slice, the MBs of each B mode and the B MBs without
-    residual of every B slice, and per P anchor the intra overlay's gate
+    residual of every B slice, the vectors of P and B slices and those
+    with a quarter phase, and per P anchor the intra overlay's gate
     and the host seconds of the partition search and of the overlay (its
     dispatch: the device runs behind)."""
     from vcp_tpu_torch.codec.h264 import (bframe, encoder, entropy,
@@ -825,10 +848,17 @@ def observe_encoder(seen: dict):
             0.0 if i8 is None else float(np.mean(i8)))
         return real_i(*a, **kw)
 
+    def vectors(mv):
+        """Count the vectors of a grid and those with an odd (quarter)
+        phase in either component."""
+        _count(seen, "mvs", mv[..., 0].size)
+        _count(seen, "quarter_pel_mvs", ((mv & 1) == 1).any(axis=-1).sum())
+
     def pslice(*a, **kw):
         d = kw["data"]
         _count(seen, "t8_mbs", d["t8"].sum() if "t8" in d else 0)
         _count(seen, "half_pel_mvs", ((d["mv"] & 3) == 2).any(axis=-1).sum())
+        vectors(d["mv8"] if "mv8" in d else d["mv"])
         _count(seen, "p_intra_mbs", d["intra"].sum() if "intra" in d else 0)
         _count(seen, "p_part_mbs",
                (d["parts"] > 0).sum() if "parts" in d else 0)
@@ -836,6 +866,8 @@ def observe_encoder(seen: dict):
 
     def bslice(*a, **kw):
         d = kw["data"]
+        vectors(d["mv0"])
+        vectors(d["mv1"])
         for m in range(3):
             _count(seen, f"b_mode{m}_mbs", (d["mode"] == m).sum())
         _count(seen, "b_no_residual_mbs", (
@@ -862,15 +894,18 @@ def observe_encoder(seen: dict):
 
 def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
                   idrs: list[int], must_launch: tuple[str, ...],
-                  env: dict | None = None,
-                  cts: list[int] | None = None) -> tuple[dict, dict]:
+                  env: dict | None = None, cts: list[int] | None = None,
+                  src: str | None = None) -> tuple[dict, dict]:
     """One CLI encode on cuda with every launch count set to 0 just before
-    and read just after; returns (launches by kernel, what was seen)."""
+    and read just after; returns (launches by kernel, what was seen). The
+    input is ``frames`` written as a Y4M file, or the file ``src`` (then
+    ``frames`` gives only the count and size)."""
     from vcp_tpu_torch import cli
     from vcp_tpu_torch.codec.y4m import write_y4m
-    src = os.path.join(tmp, f"{label}.y4m")
     dst = os.path.join(tmp, f"{label}.mp4")
-    write_y4m(src, frames, 30, 1)
+    if src is None:
+        src = os.path.join(tmp, f"{label}.y4m")
+        write_y4m(src, frames, 30, 1)
     counters = launch_counters()
     seen: dict = {}
     with scoped_env(env), observe_encoder(seen):
@@ -913,6 +948,39 @@ def check_quality_tools(label: str, seen: dict) -> None:
         raise AssertionError("no vector has a half-pel phase")
 
 
+def check_qpel_tools(label: str, seen: dict) -> None:
+    """The quarter-pel path coded quarter-pel vectors: the share of the
+    P and B slices' vectors with an odd phase is above 0."""
+    share = seen.get("quarter_pel_mvs", 0) / max(1, seen.get("mvs", 0))
+    log(f"  {label}: vectors with a quarter-pel phase "
+        f"{seen.get('quarter_pel_mvs', 0)} of {seen.get('mvs', 0)} "
+        f"(share {share:.4f})")
+    if not share > 0:
+        raise AssertionError(f"{label}: no vector has a quarter-pel phase")
+
+
+def check_decoder(path: str, source) -> None:
+    """The port's host decoder on an MP4 the port wrote: every frame, in
+    display order, close to the synthetic source."""
+    from vcp_tpu_torch.codec.h264.decoder import psnr
+    from vcp_tpu_torch.codec.ingest import open_video
+    t0 = time.monotonic()
+    vid = open_video(path)
+    frames = list(vid.frames)
+    dt = time.monotonic() - t0
+    if len(frames) != len(source):
+        raise AssertionError(f"decoded {len(frames)} frames of "
+                             f"{len(source)}")
+    db = [psnr(f[0], s[0]) for f, s in zip(frames, source)]
+    log(f"  host decode of {os.path.basename(path)}: {len(frames)} frames "
+        f"{frames[0][0].shape} in {dt:.3f} s ({len(frames) / dt:.2f} fps), "
+        f"luma PSNR vs the source min {min(db):.2f} dB, mean "
+        f"{statistics.mean(db):.2f} dB (floor {DECODE_PSNR_FLOOR_DB})")
+    if not min(db) >= DECODE_PSNR_FLOOR_DB:
+        raise AssertionError(f"decoded luma PSNR {min(db):.2f} dB below "
+                             "the floor: frames out of order or drifting")
+
+
 def check_b_tools(label: str, seen: dict) -> None:
     """The B-GOP quality path used what it adds: intra MBs in some P
     slice, partitioned MBs, all three B modes, B MBs without residual."""
@@ -935,22 +1003,33 @@ def check_b_tools(label: str, seen: dict) -> None:
 # Phase 4: cuda vs cpu on one GOP of each path
 # ---------------------------------------------------------------------------
 
-def check_devices(label: str, frames, ffargs: str) -> None:
+def check_devices(label: str, frames, ffargs: str,
+                  count: tuple[str, ...] = ()) -> None:
+    """One GOP on cuda and on cpu: the same NAL units. The kernels named
+    in ``count`` must launch in the cuda run (logged)."""
     from vcp_tpu_torch.codec.args import parse_encode_args
     from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
     params = parse_encode_args(ffargs)
     h, w = frames[0][0].shape
     devices = (DEVICE, "cpu")
+    counters = {k: launch_counters()[k] for k in count}
     out = {}
     for dev in devices:
         cfg = EncoderConfig.from_params(params, w, h, 30, 1)
         enc = H264Encoder(cfg, device=dev)
+        before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
         t0 = time.monotonic()
         out[dev] = enc.encode_gop(frames)
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
+        launched = {k: getattr(fn, a) - before[k]
+                    for k, (fn, a) in counters.items()}
         log(f"  {label} GOP ({len(frames)} frames, B pictures "
             f"{cfg.bframes}) on {dev}: {time.monotonic() - t0:.3f} s, qp "
-            f"{cfg.qp} ({stages})")
+            f"{cfg.qp} ({stages})"
+            + (f", launches {launched}" if count else ""))
+        if dev == devices[0] and not all(launched.values()):
+            raise AssertionError(f"{label}: kernels not launched "
+                                 f"{launched}")
         if dev == devices[0]:
             ry = enc.recon_planes[0].astype(np.float64)
             mse = float(np.mean((ry - frames[-1][0].astype(np.float64))
@@ -1082,11 +1161,12 @@ def main(argv: list[str]) -> int:
     for src in devmod.SOURCES:
         devmod.kernel_lib(src)
     log(f"kernels built in {time.monotonic() - t0:.1f} s")
-    # the host CABAC writers too, so that no main path's clock holds a
+    # the host library too (CABAC writers, the MP4 decoder's parser,
+    # reconstruction and deblock), so that no main path's clock holds a
     # compiler run
     t0 = time.monotonic()
     native.get_lib()
-    log(f"host entropy library built in {time.monotonic() - t0:.1f} s")
+    log(f"host library built in {time.monotonic() - t0:.1f} s")
 
     log("phase 2: kernels vs plain versions at 1088x1920")
     rows = [*check_motion(dev, HP, W, reps=20),
@@ -1155,6 +1235,16 @@ def main(argv: list[str]) -> int:
             "nvenc-bf2", synth_frames(H, W, B_FRAMES, B_CUT), tmp,
             [f"--ffmpeg-args={NVENC_B_ARGS}"], [0, B_CUT],
             ("motion_search", "deblock_fast", "deblock_general"), cts=b_cts)
+        # a real MP4 input: the h264-cpu path's file (High profile, CABAC,
+        # B pictures, partitions, 8x8 transform), decoded on the host
+        cpu_mp4 = os.path.join(tmp, "h264-cpu.mp4")
+        check_decoder(cpu_mp4, bq)
+        by_path["h264-nvenc-hq"], seen = run_main_path(
+            "h264-nvenc-hq", bq, tmp, ["-p", "h264-nvenc-hq"], [0, B_CUT],
+            ("deblock_fast", "deblock_general"), cts=b_cts, src=cpu_mp4)
+        check_quality_tools("h264-nvenc-hq", seen)
+        check_qpel_tools("h264-nvenc-hq", seen)
+        check_b_tools("h264-nvenc-hq", seen)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")
@@ -1164,6 +1254,13 @@ def main(argv: list[str]) -> int:
         # IDR, P3, B1, B2
         check_devices("h264-cpu-exhaustive", bq[:4],
                       BUILTIN_PRESETS["h264-cpu"])
+        # the search-only kernel at +-16 on both B lists, quarter-pel
+        # partitions on the anchor
+        check_devices("h264-nvenc-hq-exhaustive", bq[:4],
+                      BUILTIN_PRESETS["h264-nvenc-hq"],
+                      count=("motion_search_only",))
+    # IDR + 1 P: the chunked quarter-pel P path
+    check_devices("p7-bf0", qframes[:2], P7_ARGS)
     check_pyramid_pstep(qframes)
     log("phase 5: device time of one GOP on cuda (torch.profiler; "
         f"{time.monotonic() - t_start:.1f} s)")

@@ -20,6 +20,8 @@ from vcp_tpu_torch.codec.h264 import encoder as te
 from video_util import synth_video
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "golden",
+                      "texture_256x160_x264_crf26.264")
 W, H = 96, 64
 CUT = 9
 
@@ -73,7 +75,9 @@ def test_encode_file_mp4_identical(frames, tmp_path, args):
 
 def test_no_jax_or_vcp_tpu_imports():
     """Importing every module of the port, and chip_smoke.py, pulls in
-    neither jax nor vcp_tpu."""
+    neither jax nor vcp_tpu; neither does a host decode of an H.264
+    stream (the decoder, its native parser and reconstruction, the host
+    deblock) or an MP4 ingest."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import vcp_tpu_torch\n"
@@ -81,19 +85,29 @@ def test_no_jax_or_vcp_tpu_imports():
         " 'vcp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from vcp_tpu_torch.codec.h264.decoder import H264Decoder\n"
+        f"data = open({GOLDEN!r}, 'rb').read()\n"
+        "assert len(H264Decoder().decode_annexb(data)) == 24\n"
+        "need = ['vcp_tpu_torch.codec.ingest',"
+        " 'vcp_tpu_torch.codec.h264.decoder',"
+        " 'vcp_tpu_torch.codec.h264.native_parse',"
+        " 'vcp_tpu_torch.codec.h264.native_recon',"
+        " 'vcp_tpu_torch.ops.deblock_host']\n"
+        "assert all(m in sys.modules for m in need)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'vcp_tpu'))\n"
         "print(len([m for m in sys.modules if m.startswith('vcp_tpu_torch')]),"
         " bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) > 20 and bad == "[]", out.stdout
+    assert int(n) > 40 and bad == "[]", out.stdout
 
 
-def test_default_device_raises_without_cuda(monkeypatch, frames, tmp_path):
+def test_default_device_raises_without_cuda(monkeypatch, frames, tmp_path,
+                                           capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_device.resolve_device()
@@ -102,28 +116,29 @@ def test_default_device_raises_without_cuda(monkeypatch, frames, tmp_path):
         te.H264Encoder(cfg)
     src = str(tmp_path / "in.y4m")
     write_y4m(src, frames[:2])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        t_cli.main(["encode", src, str(tmp_path / "o.mp4")])
+    # the executor wraps the failure as EncodeError, which the CLI reports
+    assert t_cli.main(["encode", src, str(tmp_path / "o.mp4")]) == 1
+    assert "error: RuntimeError:" in capsys.readouterr().err
     assert t_device.resolve_device("cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("preset,env,match", [
     ("h264-cpu", {"VCP_CABAC": "0"}, "CAVLC.*A4"),
     ("h264-nvenc", {"VCP_CABAC": "0"}, "CAVLC"),
-    ("h264-nvenc", {"VCP_BFRAMES": "2", "VCP_PARTS": "1"},
-     "partitions below effort 5.*A1b"),
+    ("h264-nvenc", {"VCP_BFRAMES": "2", "VCP_T8": "1"},
+     "8x8 transform below effort 5.*A1c"),
     ("h265-nvenc", {}, "HEVC"),
     ("copy", {}, "copy preset"),
     (f"={QUALITY}", {"VCP_T8": "0"}, "VCP_T8=0.*A1c"),
     (f"={QUALITY}", {"VCP_RDI": "0"}, "without RD intra.*A1c"),
     (f"={QUALITY}", {"VCP_CABAC": "0"}, "CAVLC"),
-    ("=-c:v libx264 -preset slower", {}, "effort 7 .quarter-pel.*A1b"),
-    ("=-c:v libx264 -preset slower -bf 0", {}, "effort 7 .quarter-pel.*A1b"),
-    ("=-c:v libx264 -preset veryslow", {}, "effort 8 .quarter-pel.*A1b"),
+    ("h264-nvenc-hq", {"VCP_T8": "0"}, "effort 7 without the 8x8.*A1c"),
+    ("=-c:v libx264 -preset slower -bf 0", {"VCP_RDI": "0"},
+     "effort 7 without RD intra.*A1c"),
+    ("=-c:v libx264 -preset veryslow -s 64x48", {}, "scaling.*A5c"),
     ("=-c:v h264_nvenc -preset p4", {"VCP_T8": "1"}, "8x8 transform below"),
     ("=-c:v h264_nvenc -preset p4", {"VCP_RDI": "1"}, "RD intra below"),
-    ("=-c:v h264_nvenc -preset p4 -bf 2", {"VCP_PARTS": "1"},
-     "partitions below effort 5"),
+    ("=-c:v h264_nvenc -preset p4 -vf scale=48:-2", {}, "scaling.*A5c"),
     ("=-c:v h264_nvenc -preset p4 -bf 2", {"VCP_INTRA_P": "1"},
      "intra overlay without partitions.*A1c"),
 ])
@@ -142,10 +157,74 @@ def test_settings_outside_the_slice_raise(preset, env, match, frames,
                     "--device", "cpu"])
 
 
-def test_mp4_input_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="decoder"):
-        t_cli.main(["encode", str(tmp_path / "in.mp4"),
-                    str(tmp_path / "o.mp4"), "--device", "cpu"])
+def test_mp4_input_raises(frames, tmp_path):
+    """An MP4 input that carries an AAC track raises naming A6 (vcp_tpu
+    would mux the track; the port never drops it), as does an audio-only
+    task."""
+    from vcp_tpu.codec import mp4 as jm
+    from vcp_tpu_torch.pipeline import executor as t_executor
+    src = str(tmp_path / "in.y4m")
+    write_y4m(src, frames[:2])
+    video = str(tmp_path / "v.mp4")
+    assert t_cli.main(["encode", src, video, "--device", "cpu"]) == 0
+    d = jm.Mp4Demuxer(video)
+    tr = jm.VideoTrack(codec="h264", width=W, height=H,
+                       timescale=d.video.timescale, sps=d.video.sps,
+                       pps=d.video.pps)
+    tr.samples = [jm.Sample(data=d.sample(d.video, i), duration=1000,
+                            is_sync=i == 0) for i in range(2)]
+    au = jm.AudioTrack(codec="aac", sample_rate=44100, channels=1,
+                       timescale=44100, decoder_config=b"\x12\x08")
+    au.samples = [jm.Sample(data=b"\x21\x10", duration=1024, is_sync=True)]
+    w = jm.Mp4Writer()
+    w.add_track(tr)
+    w.add_track(au)
+    av = str(tmp_path / "av.mp4")
+    w.write(av)
+    with pytest.raises(NotImplementedError, match="AAC track.*A6"):
+        t_cli.main(["encode", av, str(tmp_path / "o.mp4"), "--device",
+                    "cpu"])
+    with pytest.raises(NotImplementedError, match="audio-only.*A6"):
+        t_executor.execute(av, str(tmp_path / "o.mp4"), "-vn -c:a aac",
+                           device="cpu")
+
+
+@pytest.mark.parametrize("args", [
+    "-c:v h264_nvenc -preset p4 -b:v 10M",
+    "-c:v libx264 -preset medium -crf 23",
+])
+def test_missing_input_is_an_encode_error(tmp_path, capsys, args):
+    """A missing input fails as EncodeError from both executors, chained
+    to the FileNotFoundError, and the CLI reports it without a
+    traceback."""
+    from vcp_tpu_torch.pipeline import executor as t_executor
+    for path in ("nope.y4m", "nope.mp4"):
+        src = str(tmp_path / path)
+        dst = str(tmp_path / "o.mp4")
+        with pytest.raises(j_executor.EncodeError,
+                           match="FileNotFoundError"):
+            j_executor.execute(src, dst, args)
+        with pytest.raises(t_executor.EncodeError,
+                           match="FileNotFoundError") as info:
+            t_executor.execute(src, dst, args, device="cpu")
+        assert isinstance(info.value.__cause__, FileNotFoundError)
+        assert t_cli.main(["encode", src, dst, f"--ffmpeg-args={args}",
+                           "--device", "cpu"]) == 1
+        assert "error: FileNotFoundError" in capsys.readouterr().err
+
+
+def test_not_ported_passes_through_unwrapped(frames, tmp_path,
+                                             monkeypatch):
+    """NotImplementedError is not wrapped as EncodeError, so a setting
+    that is not ported stays loud."""
+    from vcp_tpu_torch.pipeline import executor as t_executor
+    monkeypatch.setenv("VCP_CABAC", "0")
+    src = str(tmp_path / "in.y4m")
+    write_y4m(src, frames[:2])
+    with pytest.raises(NotImplementedError, match="A4") as info:
+        t_executor.execute(src, str(tmp_path / "o.mp4"),
+                           "-c:v h264_nvenc -preset p4", device="cpu")
+    assert not isinstance(info.value, t_executor.EncodeError)
 
 
 def test_recon_planes_psnr(frames):

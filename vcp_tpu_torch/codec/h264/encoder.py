@@ -13,12 +13,13 @@ dispatched in decode order with each frame's entropy inputs packed into
 one int16 buffer on the device, then fetched and written in that order.
 The settings that run: the speed shape (effort <= 4: full-pel ME, 4x4
 transform, row-pattern I16 IDR), with or without B pictures, and the
-half-pel quality shape (efforts 5 and 6: pyramid or exhaustive
-full-pel search refined to half-pel, adaptive 8x8 transform, RD intra
-IDR with I16 and i8 MBs, High profile), by default with 2 B pictures,
-partitioned P anchors and intra MBs in P pictures. Settings outside
-these raise ``NotImplementedError`` naming the ROADMAP item that will
-port them.
+quality shapes (efforts 5-9: pyramid or exhaustive full-pel search
+refined to half-pel at efforts 5-6 and to quarter-pel at 7-9, adaptive
+8x8 transform, RD intra IDR with I16 and i8 MBs, High profile), by
+default with 2 B pictures, partitioned P anchors and intra MBs in P
+pictures. ``encode_file`` reads a Y4M file or decodes an H.264 MP4 on
+the host (``codec.ingest``). Settings outside these raise
+``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -134,17 +135,17 @@ class EncoderConfig:
 
 def check_supported(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for settings outside the ported shapes:
-    effort <= 4 without 8x8 transform, partitions, intra overlay or RD
-    intra; efforts 5-6 (half-pel ME) with the 8x8 transform and RD
-    intra; both CABAC, with or without B pictures. (Partitions and the
-    overlay reach only the B-GOP coder's P anchors, as in vcp_tpu; the
-    chunked P path has neither.)"""
+    effort <= 4 without 8x8 transform, overlay or RD intra (partitions,
+    which run with B pictures only, as in vcp_tpu, take the quarter-pel
+    MC at full-pel vectors); efforts 5-9 (half-pel ME at 5-6,
+    quarter-pel at 7-9) with the 8x8 transform and RD intra; both CABAC,
+    with or without B pictures. (Partitions and the overlay reach only
+    the B-GOP coder's P anchors, as in vcp_tpu; the chunked P path has
+    neither.)"""
     todo = []
     if not cfg.cabac:
         todo.append("CAVLC / VCP_CABAC=0 (ROADMAP A4)")
-    if cfg.effort >= 7:
-        todo.append(f"effort {cfg.effort} (quarter-pel ME; ROADMAP A1b)")
-    elif cfg.effort >= 5:
+    if cfg.effort >= 5:
         if not cfg.transform8:
             todo.append(f"effort {cfg.effort} without the 8x8 transform / "
                         "VCP_T8=0 (needs the I16-only RD intra frame; "
@@ -155,9 +156,6 @@ def check_supported(cfg: EncoderConfig) -> None:
     else:
         if cfg.transform8:
             todo.append("8x8 transform below effort 5 (ROADMAP A1c)")
-        if cfg.parts and cfg.bframes > 0:
-            todo.append("partitions below effort 5 (full-pel partitions "
-                        "need quarter-pel MC; ROADMAP A1b)")
         if cfg.use_rd_intra():
             todo.append("RD intra below effort 5 (ROADMAP A1c)")
     if cfg.bframes > 0 and cfg.use_intra_p() and not (
@@ -201,14 +199,16 @@ class H264Encoder:
         self.idr_count = 0
         self._frame_num = 0
         self._recon = None          # (y, u, v) uint8 planes on the device
-        # host seconds per stage, summed over GOPs: the IDR's, the P
+        # host seconds per stage, summed over GOPs: decode (pulling the
+        # frames from the input: the Y4M read, or the MP4 demux and host
+        # H.264 decode; ``encode_stream`` adds it), the IDR's, the P
         # chunks' or P anchors' and the B pictures' dispatch (pad, pack,
         # upload, enqueue device work; the P anchors' include the intra
         # overlay gate's device->host read), fetch (device->host copies,
         # which wait for the device) and entropy (unpack + CABAC slice
         # writers)
-        self.stage_s = {"idr": 0.0, "p": 0.0, "b": 0.0, "fetch": 0.0,
-                        "entropy": 0.0}
+        self.stage_s = {"decode": 0.0, "idr": 0.0, "p": 0.0, "b": 0.0,
+                        "fetch": 0.0, "entropy": 0.0}
         self.rc = None
         if cfg.params is not None and cfg.params.rate_mode() == "abr":
             from .ratecontrol import RateController
@@ -532,10 +532,12 @@ def encode_stream(frames, cfg: EncoderConfig, deadline: float | None = None,
     with samples [(annexb_au, is_idr)], or (annexb_au, is_idr,
     cts_offset) in streams with B pictures. Frames are grouped into GOPs at
     ``cfg.gop_size`` and at scene cuts; the deadline is checked between
-    GOPs."""
+    GOPs. The host seconds spent pulling frames from ``frames`` count
+    as the encoder's ``stage_s["decode"]``."""
     enc = H264Encoder(cfg, device=device)
     samples = []
     gop: list = []
+    frames = iter(frames)
 
     def flush():
         if not gop:
@@ -547,7 +549,12 @@ def encode_stream(frames, cfg: EncoderConfig, deadline: float | None = None,
         if on_frame:
             on_frame(len(samples) - 1, enc)
 
-    for f in frames:
+    while True:
+        t0 = time.perf_counter()
+        f = next(frames, None)
+        enc.stage_s["decode"] += time.perf_counter() - t0
+        if f is None:
+            break
         if gop and _is_scene_cut(gop[-1][0], f[0]):
             flush()
         gop.append(f)
@@ -574,25 +581,35 @@ def mux_mp4(path: str, sps: bytes, pps: bytes, samples, width: int,
     w.write(path, faststart=faststart)
 
 
+def _aac_track_raises(input_path: str, audio, params: EncodeParams) -> None:
+    """vcp_tpu muxes an MP4 input's AAC track (``audio``, from ingest)
+    into the output under ``-c:a aac|copy`` without ``-an``; until audio
+    is ported, such an input raises rather than lose its track."""
+    if params.audio_disabled or params.audio_codec not in ("aac", "copy"):
+        return
+    if audio is not None and audio.codec == "mp4a" and audio.sample_count:
+        raise NotImplementedError(
+            f"input {input_path!r} carries an AAC track: audio is not "
+            "ported yet (ROADMAP A6)")
+
+
 def encode_file(input_path: str, output_path: str, params: EncodeParams,
                 deadline: float | None = None, device: str = "cuda") -> int:
-    """Encode a .y4m file to MP4 on ``device``; returns the output size.
-    A Y4M source carries no audio, so ``-c:a`` adds no track."""
-    from ..y4m import read_y4m
-    if not input_path.lower().endswith(".y4m"):
-        raise NotImplementedError(
-            f"input {input_path!r}: only .y4m is ported (MP4/H.264 ingest "
-            "needs the decoder, ROADMAP A5)")
+    """Encode a .y4m or an H.264 .mp4 file to MP4 on ``device``; returns
+    the output size. MP4 inputs are decoded on the host
+    (``codec.ingest``)."""
+    from ..ingest import open_video
     if params.scale_width or params.scale_height:
         raise NotImplementedError("scaling (-s / -vf scale) is not ported "
-                                  "yet (ROADMAP A5)")
-    vid = read_y4m(input_path)
+                                  "yet (ROADMAP A5c)")
+    vid = open_video(input_path)
+    _aac_track_raises(input_path, vid.audio, params)
     cfg = EncoderConfig.from_params(params, width=vid.width,
                                     height=vid.height, fps_num=vid.fps_num,
                                     fps_den=vid.fps_den)
     t0 = time.monotonic()
-    frames = (vid.planes(i) for i in range(vid.num_frames))
-    sps, pps, samples = encode_stream(frames, cfg, deadline, device=device)
+    sps, pps, samples = encode_stream(vid.frames, cfg, deadline,
+                                      device=device)
     mux_mp4(output_path, sps, pps, samples, cfg.width, cfg.height,
             cfg.fps_num, cfg.fps_den, faststart=params.faststart)
     dt = time.monotonic() - t0

@@ -24,6 +24,11 @@ from . import headers as H
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
+# chroma 4x4 block order inside an MB's 8x8 chroma plane, and the I_PCM
+# mb_type (the host decoder's syntax walks read both)
+CHROMA_BLK_ORDER = np.array([(0, 0), (0, 1), (1, 0), (1, 1)], dtype=np.int32)
+MB_TYPE_I_PCM = 25
+
 
 def _nal(lib, rbsp_buf: np.ndarray, rbsp_len: int, nal_type: int,
          nal_ref_idc: int) -> bytes:

@@ -195,24 +195,12 @@ def _search_mc_luma(cur_y, ref_y, sr: int, lam: int, subpel: int):
     against the same reference (the B step's dominant-MV candidates).
 
     ``subpel`` 0 is full-pel ME (the search kernel also writes the
-    prediction); 1 takes full-pel vectors from the pyramid search (wide
-    windows, see ``use_hier_me``) or from the exhaustive search-only
-    kernel, and refines them to half-pel with the fused refine + MC over
-    the half-pel planes of the padded reference."""
+    prediction); 1 and 2 take full-pel vectors from the pyramid search
+    (wide windows, see ``use_hier_me``) or from the exhaustive
+    search-only kernel, and refine them over the half-pel planes of the
+    padded reference: to half-pel with the fused refine + MC (1), or to
+    quarter-pel with ``refine_subpel`` and the 16-case MC (2)."""
     h, w = cur_y.shape
-    if subpel == 1:
-        if use_hier_me(sr):
-            mv_full = mops.hier_search(cur_y, ref_y, sr, lam)
-        else:
-            mv_full = motion_search(cur_y.contiguous(), ref_y.contiguous(),
-                                    sr, lam, with_pred=False)
-        pad = sr + 6
-        margin = pad - 3
-        planes = torch.stack(mops.half_planes(
-            mops.pad_edge(ref_y, pad, pad, pad, pad)))
-        mv, pred_y = mops.refine_half_mc(cur_y, planes, mv_full, lam, margin)
-        return mv, pred_y, lambda g: mops.mc_luma_uniform(planes, g, margin,
-                                                          0, h, w)
     if subpel == 0:
         mv_full, pred_y = motion_search(cur_y.contiguous(),
                                         ref_y.contiguous(), sr, lam,
@@ -220,8 +208,24 @@ def _search_mc_luma(cur_y, ref_y, sr: int, lam: int, subpel: int):
         return mv_full * 4, pred_y, lambda g: mops.mc_luma(
             ref_y, torch.div(g, 4, rounding_mode="floor")
             .expand(mv_full.shape), sr)
-    raise NotImplementedError(
-        f"subpel {subpel}: quarter-pel ME is not ported yet (ROADMAP A1b)")
+    if use_hier_me(sr):
+        mv_full = mops.hier_search(cur_y, ref_y, sr, lam)
+    else:
+        mv_full = motion_search(cur_y.contiguous(), ref_y.contiguous(),
+                                sr, lam, with_pred=False)
+    pad = sr + 6
+    margin = pad - 3
+    planes = torch.stack(mops.half_planes(
+        mops.pad_edge(ref_y, pad, pad, pad, pad)))
+    if subpel == 1:
+        mv, pred_y = mops.refine_half_mc(cur_y, planes, mv_full, lam, margin)
+        return mv, pred_y, lambda g: mops.mc_luma_uniform(planes, g, margin,
+                                                          0, h, w)
+    mv = mops.refine_subpel(cur_y, planes, mv_full, lam, margin,
+                            quarter=True)
+    pred_y = mops.mc_luma_q(planes, mv, margin)
+    return mv, pred_y, lambda g: mops.mc_luma_q(
+        planes, g.expand(mv_full.shape), margin)
 
 
 def _mc_chroma_pair(ref_u, ref_v, mv, sr: int, bs: int = 16):
@@ -342,7 +346,7 @@ def encode_bframe(cur_y, cur_u, cur_v, r0y, r0u, r0v, r1y, r1u, r1v,
     # the uniform-MV candidate: per list the frame-dominant vector,
     # snapped to the sub-pel grid in use; regions that adopt one shared
     # vector collapse to skip runs at entropy time
-    snap = 4 if subpel == 0 else 2
+    snap = 4 if subpel == 0 else (2 if subpel == 1 else 1)
     g0, g1 = dominant_mv(mv0, snap), dominant_mv(mv1, snap)
     pu0 = mc0(g0)
     pu1 = mc1(g1)

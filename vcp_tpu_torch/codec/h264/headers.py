@@ -1,5 +1,6 @@
-"""H.264 parameter-set and slice-header bitstreams (host); copy of the
-writer half of ``vcp_tpu/codec/h264/headers.py``.
+"""H.264 parameter-set and slice-header bitstreams (host); copy of
+``vcp_tpu/codec/h264/headers.py``: the writers, and the SPS / PPS
+parsers of the host decoder.
 
 Baseline-profile, 4:2:0, frame-coded, one slice per picture,
 pic_order_cnt_type=2 (display order == decode order; no B-frames), one
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from ...utils.bitstream import BitWriter, nal_unit
+from ...utils.bitstream import BitReader, BitWriter, nal_unit
 
 NAL_SLICE_NONIDR = 1
 NAL_SLICE_IDR = 5
@@ -168,3 +169,86 @@ def write_slice_header(bw: BitWriter, sp: SeqParams, pp: PicParams, *,
             bw.ue(0)
             bw.se(0)                          # slice_alpha_c0_offset_div2
             bw.se(0)                          # slice_beta_offset_div2
+
+
+# ---------------------------------------------------------------------------
+# Parsing (for the host decoder)
+# ---------------------------------------------------------------------------
+
+def parse_sps(rbsp: bytes) -> SeqParams:
+    br = BitReader(rbsp)
+    profile = br.u(8)
+    br.u(8)
+    level = br.u(8)
+    sps_id = br.ue()
+    if profile in (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139,
+                   134, 135):
+        chroma_format = br.ue()
+        if chroma_format != 1:
+            raise ValueError(f"chroma_format_idc {chroma_format} "
+                             "unsupported (4:2:0 only)")
+        if br.ue() != 0 or br.ue() != 0:   # bit depths
+            raise ValueError("high bit depth unsupported")
+        br.u(1)                            # qpprime_y_zero_transform_bypass
+        if br.u(1):
+            raise ValueError("seq scaling matrices unsupported")
+    log2_mfn = br.ue() + 4
+    poc_type = br.ue()
+    log2_max_poc = 8
+    if poc_type == 0:
+        log2_max_poc = br.ue() + 4
+    elif poc_type == 1:
+        raise ValueError("poc_type 1 unsupported")
+    num_ref = br.ue()
+    br.u(1)
+    mbw = br.ue() + 1
+    mbh = br.ue() + 1
+    frame_mbs_only = br.u(1)
+    if not frame_mbs_only:
+        raise ValueError("interlaced unsupported")
+    br.u(1)
+    width, height = mbw * 16, mbh * 16
+    if br.u(1):  # cropping
+        cl, cr, ct, cb = br.ue(), br.ue(), br.ue(), br.ue()
+        width -= 2 * (cl + cr)
+        height -= 2 * (ct + cb)
+    return SeqParams(width=width, height=height, profile_idc=profile,
+                     level_idc=level, log2_max_frame_num=log2_mfn,
+                     num_ref_frames=num_ref, sps_id=sps_id,
+                     poc_type=poc_type, log2_max_poc_lsb=log2_max_poc)
+
+
+def parse_pps(rbsp: bytes) -> PicParams:
+    br = BitReader(rbsp)
+    pps_id = br.ue()
+    sps_id = br.ue()
+    cabac = bool(br.u(1))
+    br.u(1)
+    if br.ue() != 0:
+        raise ValueError("slice groups unsupported")
+    num_ref_l0 = br.ue() + 1
+    num_ref_l1 = br.ue() + 1
+    weighted_pred = bool(br.u(1))
+    weighted_bipred = br.u(2)
+    init_qp = br.se() + 26
+    br.se()
+    chroma_off = br.se()
+    deblock_present = bool(br.u(1))
+    constrained_intra = br.u(1)
+    if constrained_intra:
+        raise ValueError("constrained_intra_pred unsupported")
+    br.u(1)                                    # redundant_pic_cnt_present
+    transform_8x8 = False
+    if br.more_rbsp_data():                    # High-profile PPS extension
+        transform_8x8 = bool(br.u(1))
+        if br.u(1):
+            raise ValueError("pic scaling matrices unsupported")
+        br.se()                                # second_chroma_qp_index_offset
+    return PicParams(pps_id=pps_id, sps_id=sps_id, init_qp=init_qp,
+                     chroma_qp_index_offset=chroma_off,
+                     deblocking_filter_control_present=deblock_present,
+                     cabac=cabac, num_ref_l0=num_ref_l0,
+                     num_ref_l1=num_ref_l1,
+                     transform_8x8=transform_8x8,
+                     weighted_pred=weighted_pred,
+                     weighted_bipred=weighted_bipred)

@@ -7,10 +7,11 @@ chunked path's ``gop_ops._pstep`` unpacked into a dict. With partitions
 (the quality presets) every MB picks 16x16 / 16x8 / 8x16 / P_8x8: one
 full-pel sweep scores every granularity (``motion.full_search_parts``,
 or the pyramid ``motion.hier_search_parts`` on wide windows), each is
-refined to half-pel at its own geometry, the sub-16x16 shape is
-preselected by SAD + lambda * MV rate with fixed syntax penalties, and
-16x16 against that shape is a luma RD trial (transform, quantize,
-SSD + lambda2 * bits). The final MV field lives on the 8x8 grid, so MC,
+refined to half-pel (efforts 5-6) or quarter-pel (7-9) at its own
+geometry (below effort 5, with ``VCP_PARTS=1``, the full-pel vectors
+stay as they are), the sub-16x16 shape is preselected by SAD + lambda *
+MV rate with fixed syntax penalties, and 16x16 against that shape is a
+luma RD trial (transform, quantize, SSD + lambda2 * bits). The final MV field lives on the 8x8 grid, so MC,
 the residual and the deblock run once, partition-agnostic.
 
 With ``intra_mbs`` a cheap parallel probe (bits-free SSD of the I16
@@ -106,10 +107,6 @@ def _encode_pframe_parts(y, u, v, ref_y, ref_u, ref_v, qp: int, qpc: int,
     P_8x8) and the optional intra overlay."""
     from ...ops import deblock as dbf
     from . import intra_rd
-    if subpel != 1:
-        raise NotImplementedError(
-            f"partitions at subpel {subpel}: needs quarter-pel MC (ROADMAP "
-            "A1b)")
     y, u, v, ref_y, ref_u, ref_v = (
         a.to(torch.int32) for a in (y, u, v, ref_y, ref_u, ref_v))
     dev = y.device
@@ -123,17 +120,34 @@ def _encode_pframe_parts(y, u, v, ref_y, ref_u, ref_v, qp: int, qpc: int,
     margin = pad - 3
     planes = torch.stack(mops.half_planes(
         mops.pad_edge(ref_y, pad, pad, pad, pad)))
-    # fused half-pel refine + MC per geometry (16x16, 8x8, 16x8, 8x16)
-    mv16, pred16 = mops.refine_half_mc(y, planes, mv16f, lam, margin, bs=16)
-    mv8, pred8 = mops.refine_half_mc(y, planes, mv8f, lam, margin, bs=8)
-    mvh, predh = mops.refine_half_mc(y, planes, mvhf, lam, margin,
-                                     bs=(8, 16))
-    mvv, predv = mops.refine_half_mc(y, planes, mvvf, lam, margin,
-                                     bs=(16, 8))
+    if subpel == 1:
+        # fused half-pel refine + MC per geometry (16x16, 8x8, 16x8, 8x16)
+        mv16, pred16 = mops.refine_half_mc(y, planes, mv16f, lam, margin,
+                                           bs=16)
+        mv8, pred8 = mops.refine_half_mc(y, planes, mv8f, lam, margin, bs=8)
+        mvh, predh = mops.refine_half_mc(y, planes, mvhf, lam, margin,
+                                         bs=(8, 16))
+        mvv, predv = mops.refine_half_mc(y, planes, mvvf, lam, margin,
+                                         bs=(16, 8))
+    elif subpel:
+        # quarter-pel refinement at each geometry
+        mv16, mv8, mvh, mvv = (
+            mops.refine_subpel(y, planes, mvf, lam, margin, quarter=True,
+                               bs=bs)
+            for mvf, bs in ((mv16f, 16), (mv8f, 8), (mvhf, (8, 16)),
+                            (mvvf, (16, 8))))
+    else:
+        mv16, mv8, mvh, mvv = mv16f * 4, mv8f * 4, mvhf * 4, mvvf * 4
     # every shape's vectors on the common 8x8 grid
     mv16_q = _rep2(mv16, 2)
     mvh_q = mvh.repeat_interleave(2, 1)
     mvv_q = mvv.repeat_interleave(2, 0)
+    if subpel != 1:
+        # every shape's MC on the 8x8 grid (interpolation is a function of
+        # position and vector alone, so the replication is exact)
+        pred16, pred8, predh, predv = (
+            mops.mc_luma_q(planes, m, margin, bs=8)
+            for m in (mv16_q, mv8, mvh_q, mvv_q))
     mv16_h = mv16.repeat_interleave(2, 0)          # 16x16 vector per 16x8
     mv16_v = mv16.repeat_interleave(2, 1)          # ... and per 8x16
 

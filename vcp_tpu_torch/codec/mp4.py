@@ -1,10 +1,13 @@
-"""MP4 (ISO BMFF) muxing of one H.264 video track, plus the box reader.
+"""MP4 (ISO BMFF) muxing of one H.264 video track, and demuxing.
 
 Copy of the writer half of ``vcp_tpu/codec/mp4.py`` (video only):
 :class:`Mp4Writer` writes moov before mdat for ``-movflags +faststart``,
 with length-prefixed NAL samples, an avcC sample entry and, for streams
 with B pictures, a ctts box of composition-time offsets. ``iter_boxes``
-/ ``find_box`` walk a written file's box tree.
+/ ``find_box`` walk a file's box tree. And a copy of its demuxer,
+:class:`Mp4Demuxer`, which the ingest of MP4 inputs reads: every track's
+sample tables (stsc / stco / co64 / stsz / stts / stss), the avcC / hvcC
+parameter sets and the AAC AudioSpecificConfig of an mp4a track.
 """
 
 from __future__ import annotations
@@ -62,6 +65,52 @@ def full_box(btype: bytes, version: int, flags: int, *payloads: bytes) -> bytes:
 
 _MATRIX_IDENTITY = struct.pack(">9i", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
                                0x40000000)
+
+
+@dataclasses.dataclass
+class TrackInfo:
+    handler: str = ""        # "vide" | "soun" | ...
+    codec: str = ""          # "avc1" | "hvc1" | "hev1" | "mp4a" | ...
+    width: int = 0
+    height: int = 0
+    timescale: int = 0
+    duration: int = 0
+    sample_count: int = 0
+
+
+def _parse_trak(buf: bytes, ps: int, pe: int) -> TrackInfo:
+    t = TrackInfo()
+    tkhd = find_box(buf, [b"tkhd"], ps, pe)
+    if tkhd:
+        v = buf[tkhd[0]]
+        base = tkhd[0] + (4 + 8 * 4 + 16 + 36 if v == 1 else 4 + 5 * 4 + 16 + 36)
+        if base + 8 <= tkhd[1]:
+            w, h = struct.unpack_from(">II", buf, base)
+            t.width, t.height = w >> 16, h >> 16
+    mdia = find_box(buf, [b"mdia"], ps, pe)
+    if not mdia:
+        return t
+    mdhd = find_box(buf, [b"mdhd"], mdia[0], mdia[1])
+    if mdhd:
+        v = buf[mdhd[0]]
+        if v == 1:
+            t.timescale, t.duration = struct.unpack_from(">IQ", buf, mdhd[0] + 20)
+        else:
+            t.timescale, t.duration = struct.unpack_from(">II", buf, mdhd[0] + 12)
+    hdlr = find_box(buf, [b"hdlr"], mdia[0], mdia[1])
+    if hdlr:
+        t.handler = buf[hdlr[0] + 8:hdlr[0] + 12].decode("latin1")
+    stbl = find_box(buf, [b"minf", b"stbl"], mdia[0], mdia[1])
+    if stbl:
+        stsd = find_box(buf, [b"stsd"], stbl[0], stbl[1])
+        if stsd:
+            for btype, _eps, _epe in iter_boxes(buf, stsd[0] + 8, stsd[1]):
+                t.codec = btype.decode("latin1")
+                break
+        stsz = find_box(buf, [b"stsz"], stbl[0], stbl[1])
+        if stsz:
+            t.sample_count, = struct.unpack_from(">I", buf, stsz[0] + 8)
+    return t
 
 
 @dataclasses.dataclass
@@ -247,6 +296,247 @@ class Mp4Writer:
                 fh.write(ftyp + moov + mdat)
             else:
                 fh.write(ftyp + mdat + moov)
+
+
+# ---------------------------------------------------------------------------
+# Demuxing (full sample tables)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DemuxedTrack:
+    handler: str
+    codec: str
+    timescale: int
+    width: int = 0
+    height: int = 0
+    sps: list[bytes] = dataclasses.field(default_factory=list)
+    pps: list[bytes] = dataclasses.field(default_factory=list)
+    vps: list[bytes] = dataclasses.field(default_factory=list)  # hevc
+    nal_length_size: int = 4
+    # audio (mp4a)
+    sample_rate: int = 0
+    channels: int = 0
+    decoder_config: bytes = b""     # AudioSpecificConfig from esds
+    sample_offsets: list[int] = dataclasses.field(default_factory=list)
+    sample_sizes: list[int] = dataclasses.field(default_factory=list)
+    sample_durations: list[int] = dataclasses.field(default_factory=list)
+    sync_samples: set[int] = dataclasses.field(default_factory=set)  # 0-based
+
+    @property
+    def sample_count(self) -> int:
+        return len(self.sample_sizes)
+
+
+def _parse_esds_asc(es: bytes) -> bytes:
+    """Walk the ES descriptor tree and return the AudioSpecificConfig
+    (DecSpecificInfo, tag 0x05)."""
+    def read_len(pos):
+        n = 0
+        for _ in range(4):
+            b = es[pos]
+            pos += 1
+            n = (n << 7) | (b & 0x7F)
+            if not b & 0x80:
+                break
+        return n, pos
+
+    pos = 0
+    while pos < len(es):
+        tag = es[pos]
+        ln, body = read_len(pos + 1)
+        if tag == 0x05:
+            return es[body:body + ln]
+        if tag == 0x03:           # ES_Descriptor: skip ES_ID + flags
+            pos = body + 3
+        elif tag == 0x04:         # DecoderConfig: skip 13 fixed bytes
+            pos = body + 13
+        else:
+            pos = body + ln
+    return b""
+
+
+class Mp4Demuxer:
+    """Parses moov sample tables; yields per-sample payloads.
+    stsc/stco/stsz/stts/stss are walked natively. H.264 samples are
+    length-prefixed NALs (avcC layout)."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as fh:
+            self.buf = fh.read()
+        self.tracks: list[DemuxedTrack] = []
+        moov = find_box(self.buf, [b"moov"])
+        if moov is None:
+            raise Mp4Error("no moov box")
+        for btype, ps, pe in iter_boxes(self.buf, moov[0], moov[1]):
+            if btype == b"trak":
+                t = self._parse_track(ps, pe)
+                if t is not None:
+                    self.tracks.append(t)
+
+    @property
+    def video(self) -> DemuxedTrack | None:
+        for t in self.tracks:
+            if t.handler == "vide":
+                return t
+        return None
+
+    @property
+    def audio(self) -> DemuxedTrack | None:
+        for t in self.tracks:
+            if t.handler == "soun":
+                return t
+        return None
+
+    def _parse_track(self, ps: int, pe: int) -> DemuxedTrack | None:
+        buf = self.buf
+        info = _parse_trak(buf, ps, pe)
+        mdia = find_box(buf, [b"mdia"], ps, pe)
+        if not mdia:
+            return None
+        stbl = find_box(buf, [b"minf", b"stbl"], mdia[0], mdia[1])
+        if not stbl:
+            return None
+        t = DemuxedTrack(handler=info.handler, codec=info.codec,
+                         timescale=info.timescale, width=info.width,
+                         height=info.height)
+
+        stsd = find_box(buf, [b"stsd"], stbl[0], stbl[1])
+        if stsd and info.codec == "avc1":
+            for btype, eps, epe in iter_boxes(buf, stsd[0] + 8, stsd[1]):
+                if btype == b"avc1":
+                    avcc = find_box(buf, [b"avcC"], eps + 78, epe)
+                    if avcc:
+                        self._parse_avcc(buf[avcc[0]:avcc[1]], t)
+        elif stsd and info.codec in ("hvc1", "hev1"):
+            for btype, eps, epe in iter_boxes(buf, stsd[0] + 8, stsd[1]):
+                if btype in (b"hvc1", b"hev1"):
+                    hvcc = find_box(buf, [b"hvcC"], eps + 78, epe)
+                    if hvcc:
+                        self._parse_hvcc(buf[hvcc[0]:hvcc[1]], t)
+        elif stsd and info.codec == "mp4a":
+            for btype, eps, epe in iter_boxes(buf, stsd[0] + 8, stsd[1]):
+                if btype == b"mp4a":
+                    t.channels, = struct.unpack_from(">H", buf, eps + 16)
+                    t.sample_rate = struct.unpack_from(
+                        ">I", buf, eps + 24)[0] >> 16
+                    esds = find_box(buf, [b"esds"], eps + 28, epe)
+                    if esds:
+                        t.decoder_config = _parse_esds_asc(
+                            buf[esds[0] + 4:esds[1]])
+
+        # sample sizes
+        stsz = find_box(buf, [b"stsz"], stbl[0], stbl[1])
+        if not stsz:
+            return None
+        fixed, count = struct.unpack_from(">II", buf, stsz[0] + 4)
+        if fixed:
+            t.sample_sizes = [fixed] * count
+        else:
+            t.sample_sizes = list(struct.unpack_from(
+                f">{count}I", buf, stsz[0] + 12))
+
+        # chunk offsets
+        stco = find_box(buf, [b"stco"], stbl[0], stbl[1])
+        co64 = find_box(buf, [b"co64"], stbl[0], stbl[1])
+        if stco:
+            n, = struct.unpack_from(">I", buf, stco[0] + 4)
+            chunk_offsets = list(struct.unpack_from(
+                f">{n}I", buf, stco[0] + 8))
+        elif co64:
+            n, = struct.unpack_from(">I", buf, co64[0] + 4)
+            chunk_offsets = list(struct.unpack_from(
+                f">{n}Q", buf, co64[0] + 8))
+        else:
+            return None
+
+        # sample-to-chunk
+        stsc = find_box(buf, [b"stsc"], stbl[0], stbl[1])
+        n, = struct.unpack_from(">I", buf, stsc[0] + 4)
+        runs = [struct.unpack_from(">III", buf, stsc[0] + 8 + 12 * i)
+                for i in range(n)]
+        # expand to per-sample offsets
+        sample = 0
+        for ri, (first_chunk, per_chunk, _desc) in enumerate(runs):
+            last_chunk = (runs[ri + 1][0] - 1 if ri + 1 < len(runs)
+                          else len(chunk_offsets))
+            for chunk in range(first_chunk, last_chunk + 1):
+                pos = chunk_offsets[chunk - 1]
+                for _ in range(per_chunk):
+                    if sample >= count:
+                        break
+                    t.sample_offsets.append(pos)
+                    pos += t.sample_sizes[sample]
+                    sample += 1
+
+        # durations
+        stts = find_box(buf, [b"stts"], stbl[0], stbl[1])
+        if stts:
+            n, = struct.unpack_from(">I", buf, stts[0] + 4)
+            for i in range(n):
+                cnt, dur = struct.unpack_from(">II", buf, stts[0] + 8 + 8 * i)
+                t.sample_durations += [dur] * cnt
+
+        # sync table (absent = all sync)
+        stss = find_box(buf, [b"stss"], stbl[0], stbl[1])
+        if stss:
+            n, = struct.unpack_from(">I", buf, stss[0] + 4)
+            t.sync_samples = {
+                struct.unpack_from(">I", buf, stss[0] + 8 + 4 * i)[0] - 1
+                for i in range(n)}
+        else:
+            t.sync_samples = set(range(count))
+        return t
+
+    @staticmethod
+    def _parse_avcc(avcc: bytes, t: DemuxedTrack) -> None:
+        t.nal_length_size = (avcc[4] & 3) + 1
+        n_sps = avcc[5] & 0x1F
+        off = 6
+        for _ in range(n_sps):
+            ln, = struct.unpack_from(">H", avcc, off)
+            t.sps.append(avcc[off + 2:off + 2 + ln])
+            off += 2 + ln
+        n_pps = avcc[off]
+        off += 1
+        for _ in range(n_pps):
+            ln, = struct.unpack_from(">H", avcc, off)
+            t.pps.append(avcc[off + 2:off + 2 + ln])
+            off += 2 + ln
+
+    @staticmethod
+    def _parse_hvcc(hvcc: bytes, t: DemuxedTrack) -> None:
+        """hvcC (ISO 14496-15 8.3.3.1): 22 fixed bytes, then NAL arrays
+        keyed by type (32=VPS, 33=SPS, 34=PPS)."""
+        t.nal_length_size = (hvcc[21] & 3) + 1
+        n_arrays = hvcc[22]
+        off = 23
+        dest = {32: t.vps, 33: t.sps, 34: t.pps}
+        for _ in range(n_arrays):
+            nal_type = hvcc[off] & 0x3F
+            n_nalus, = struct.unpack_from(">H", hvcc, off + 1)
+            off += 3
+            for _ in range(n_nalus):
+                ln, = struct.unpack_from(">H", hvcc, off)
+                nal = hvcc[off + 2:off + 2 + ln]
+                if nal_type in dest:
+                    dest[nal_type].append(nal)
+                off += 2 + ln
+
+    def sample(self, track: DemuxedTrack, i: int) -> bytes:
+        off = track.sample_offsets[i]
+        return self.buf[off:off + track.sample_sizes[i]]
+
+    def sample_nals(self, track: DemuxedTrack, i: int) -> list[bytes]:
+        """Split a length-prefixed H.264 sample into raw NAL units."""
+        data = self.sample(track, i)
+        ls = track.nal_length_size
+        nals = []
+        pos = 0
+        while pos + ls <= len(data):
+            n = int.from_bytes(data[pos:pos + ls], "big")
+            nals.append(data[pos + ls:pos + ls + n])
+            pos += ls + n
+        return nals
 
 
 def annexb_to_length_prefixed(annexb: bytes) -> bytes:

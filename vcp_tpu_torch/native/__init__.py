@@ -1,6 +1,8 @@
-"""Host C++ entropy writers (CABAC slice writers + NAL escaping).
+"""Host C++ library: the encoder's CABAC slice writers and NAL escaping,
+and the host decoder's deblocking filter, CABAC slice parser and
+reconstruction.
 
-``get_lib()`` builds ``cabac.cpp`` and ``entropy.cpp`` with g++ on first
+``get_lib()`` builds the sources (``build.SOURCES``) with g++ on first
 use into ``vcp_tpu_torch/_build/`` and returns the loaded library. These
 are host code, not device kernels. A failed build raises."""
 
@@ -59,4 +61,40 @@ def get_lib() -> ctypes.CDLL:
         u8p, u8p,                       # col_zero, col_safe
         i32p, i32p, i32p, i32p, i32p,   # luma + chroma arrays
         u8p, i64]
+    # host decoder (deblock.cpp, h264parse.cpp, h264recon.cpp)
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    lib.vcp_parse_slice_cabac.restype = i64
+    lib.vcp_parse_slice_cabac.argtypes = [
+        u8p, i64,                       # payload
+        i32, i32, i32, i32, i32,        # kind, qp, init_idc, n_mby, n_mbx
+        i32, i32, i32,                  # pps_t8, n_ref0, n_ref1
+        u8p, i32p,                      # col_ref0, col_mv8 (nullable)
+        i32p, i8p, i32p, i8p,           # mv8/ref8 l0, l1
+        u8p, u8p, u8p, i32p, u8p,       # dec8, intra, mv_valid, qp_mb, t8
+        i32p, i32p, i32p,               # z_luma, cdc, cac
+        i8p, i8p, i8p,                  # cbf grids
+        i32p, i32p, i8p, i32p]          # intra queue
+    pp = ctypes.POINTER(i32p)
+    lib.vcp_recon_inter_frame.restype = i64
+    lib.vcp_recon_inter_frame.argtypes = [
+        pp, pp, pp, i32,                # list0 planes + count
+        pp, pp, pp, i32,                # list1 planes + count (0 for P)
+        i32, i32,                       # H, W
+        i32p, i8p, i32p, i8p,           # mv8/ref8 l0, l1 (l1 nullable)
+        u8p, i32, i32,                  # inter_mb, n_mby, n_mbx
+        i32p, i32p, i32p,               # z_luma, cdc, cac
+        u8p, i32p, i32,                 # t8, qp_mb, chroma_qp_off
+        i32p, i32p, i32p, i32p,         # wt0, wt1, impl_w0, impl_w1
+        i32p, i32p, i32p]               # y, u, v
+    lib.vcp_deblock_frame_direct.restype = None
+    lib.vcp_deblock_frame_direct.argtypes = [
+        i32p, i32p, i32p, i32, i32,     # y, u, v, H, W
+        u8p, u8p, i32p, u8p,            # intra, nz, qp_mb, t8
+        i32, i32p, i32p, i32p, i32p,    # mv_mode, mv0, id0, mv1, id1
+        i32, i32, i32p]                 # gh, gw, chroma qp table
+    lib.vcp_recon_intra_mbs.restype = i64
+    lib.vcp_recon_intra_mbs.argtypes = [
+        i32p, i32p, i32p, i32, i32, i32,   # y, u, v, H, W, n_mbx
+        i64, i32p, i32p, i8p, i32p,     # count + iq arrays
+        i32p, i32p, i32p, i32]          # z_luma, cdc, cac, chroma_off
     return lib

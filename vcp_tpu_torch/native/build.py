@@ -1,8 +1,14 @@
-"""Build the host entropy library.
+"""Build the host library: the CABAC slice writers and NAL escaping of
+the encoder (``cabac.cpp``, ``entropy.cpp``) and the host decoder's
+deblocking filter, CABAC slice parser and reconstruction
+(``deblock.cpp``, ``h264parse.cpp``, ``h264recon.cpp``).
 
-Generates ``tables_gen.h`` (the CABAC context-init (m, n) pairs) from the
-port's own table copy, ``vcp_tpu_torch.codec.h264.cabac_tables``, and
-compiles ``cabac.cpp`` + ``entropy.cpp`` with g++ into a shared library
+Generates ``tables_gen.h`` from the port's own tables (the CABAC
+context-init (m, n) pairs of ``codec.h264.cabac_tables``; the dequant
+scales, scans, chroma QP map, quarter-pel case table and intra gather
+tables of ``ops.transform``, ``ops.transform8``, ``ops.motion`` and
+``codec.h264.decoder``; the deblock alpha / beta / tc0 tables of
+``ops.deblock``) and compiles the sources with g++ into a shared library
 keyed by a hash of its inputs. Plain C ABI, loaded via ctypes.
 """
 
@@ -15,7 +21,8 @@ import tempfile
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
-SOURCES = ("cabac.cpp", "entropy.cpp")
+SOURCES = ("cabac.cpp", "entropy.cpp", "deblock.cpp", "h264parse.cpp",
+           "h264recon.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
@@ -23,7 +30,7 @@ def generate_tables_header() -> str:
     from ..codec.h264.cabac_tables import CTX_INIT_I, CTX_INIT_PB, N_CTX
 
     lines = [
-        "// GENERATED from vcp_tpu_torch/codec/h264/cabac_tables.py.",
+        "// GENERATED by vcp_tpu_torch/native/build.py.",
         "#pragma once",
         "#include <cstdint>",
         f"#define VCP_N_CTX {N_CTX}",
@@ -37,6 +44,34 @@ def generate_tables_header() -> str:
     ctab("CTX_INIT_I", CTX_INIT_I)
     for idc in range(3):
         ctab(f"CTX_INIT_P{idc}", CTX_INIT_PB[idc])
+
+    # the decoder's reconstruction and deblock tables
+    import numpy as np
+
+    from ..codec.h264 import decoder
+    from ..codec.h264.tables import ZIGZAG_4x4
+    from ..ops import deblock
+    from ..ops import transform as tf
+    from ..ops import transform8 as t8
+    from ..ops.motion import _QPEL_TABLE
+
+    def flat(name, arr, ctype="int32_t"):
+        a = np.asarray(arr).reshape(-1)
+        lines.append(f"static const {ctype} {name}[{a.size}] = {{"
+                     + ",".join(str(int(v)) for v in a) + "};")
+
+    flat("VCP_V4", tf.V_TABLE)                  # (6, 4, 4)
+    flat("VCP_V8", t8.V8_TABLE)                 # (6, 8, 8)
+    flat("VCP_ZZ4", ZIGZAG_4x4)                 # 16
+    flat("VCP_ZZ8", t8.ZIGZAG_8x8)              # 64
+    flat("VCP_CHROMA_QP", tf.CHROMA_QP_FULL)    # 52
+    flat("VCP_QPEL", _QPEL_TABLE)               # (16, 6)
+    for ns, tabs in ((4, decoder._I4_TABS), (8, decoder._I8_TABS)):
+        packed = np.stack([np.stack(tabs[m]) for m in range(3, 9)])
+        flat(f"VCP_I{ns}_TABS", packed, "uint8_t")  # (6 modes, 3, ns, ns)
+    flat("VCP_DB_ALPHA", deblock.ALPHA)         # 52
+    flat("VCP_DB_BETA", deblock.BETA)           # 52
+    flat("VCP_DB_TC0", deblock.TC0)             # (3, 52)
     return "\n".join(lines) + "\n"
 
 

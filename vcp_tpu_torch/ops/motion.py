@@ -9,7 +9,10 @@ MC, the plain version of the kernel's fused prediction), ``mc_chroma_q``
 the quality presets: ``half_planes`` (spec 8.4.2.2.1 6-tap planes),
 ``aligned_windows`` + ``refine_half_mc`` (fused half-pel refinement and
 MC from one window gather), their unfused pair ``refine_half`` +
-``mc_luma_h``, ``mc_luma_uniform`` (MC of one frame-wide vector), and
+``mc_luma_h``, ``mc_luma_uniform`` (MC of one frame-wide vector), the
+quarter-pel tools of efforts 7-9 (``mc_luma_q``: the 16-case quarter-pel
+MC of spec 8.4.2.2.1 from the half-pel planes; ``refine_quarter`` and
+``refine_subpel``), and
 ``hier_search`` (the two-level pyramid full-pel search that wide windows
 take instead of the exhaustive one). The partitioned P step searches
 every granularity (16x16, 8x8, 16x8, 8x16) at once:
@@ -20,7 +23,10 @@ tensor code on every device. All int32-exact.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..device import constant
 
 
 def pad_edge(x: torch.Tensor, top: int, bottom: int, left: int,
@@ -566,3 +572,109 @@ def mc_luma_h(planes, mvq: torch.Tensor, margin: int, row0: int = 0,
     top = torch.where(hx, planes[1][rows, cols], planes[0][rows, cols])
     bot = torch.where(hx, planes[3][rows, cols], planes[2][rows, cols])
     return torch.where(hy, bot, top)
+
+
+# ---------------------------------------------------------------------------
+# Quarter-pel MC and refinement (efforts 7-9)
+# ---------------------------------------------------------------------------
+
+# quarter-pel case table: case = fy*4+fx -> (plane1, dy1, dx1, plane2,
+# dy2, dx2); planes 0=G (integer), 1=b (half-x), 2=h (half-y), 3=j
+# (half-xy). The prediction is (p1 + p2 + 1) >> 1 (a half or integer
+# case names the same sample twice). The native decoder's header takes
+# this table too (native/build.py).
+_QPEL_TABLE = np.array([
+    # fy=0
+    (0, 0, 0, 0, 0, 0), (0, 0, 0, 1, 0, 0), (1, 0, 0, 1, 0, 0),
+    (1, 0, 0, 0, 0, 1),
+    # fy=1
+    (0, 0, 0, 2, 0, 0), (1, 0, 0, 2, 0, 0), (1, 0, 0, 3, 0, 0),
+    (1, 0, 0, 2, 0, 1),
+    # fy=2
+    (2, 0, 0, 2, 0, 0), (2, 0, 0, 3, 0, 0), (3, 0, 0, 3, 0, 0),
+    (3, 0, 0, 2, 0, 1),
+    # fy=3
+    (0, 1, 0, 2, 0, 0), (2, 0, 0, 1, 1, 0), (3, 0, 0, 1, 1, 0),
+    (2, 0, 1, 1, 1, 0),
+], dtype=np.int32)
+
+# the eight neighbours refine_quarter tries, in order (quarter units)
+_QUARTER_STEPS = np.array([(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1),
+                           (1, -1), (1, 0), (1, 1)], np.int32)
+
+
+def mc_luma_q(planes: torch.Tensor, mvq: torch.Tensor, margin: int,
+              row0: int = 0, bs=16) -> torch.Tensor:
+    """Quarter-pel luma MC from the stacked half-pel planes.
+
+    planes: (4, Hp, Wp) int32 [G, b, h, j] (``half_planes``), aligned so
+    that index (margin + y, margin + x) is integer position (y, x) of the
+    frame. mvq: (nBy, nBx, 2) [dy, dx] in quarter-pel units, one vector
+    per ``bs`` block (16, 8, (8, 16) or (16, 8)), covering a band that
+    starts at frame row ``row0``. Each pixel averages the two samples its
+    case names, (p1 + p2 + 1) >> 1: every block's case picks a flat
+    offset into the planes per sample, so the MC is two gathers. With
+    margin = sr + 3, every vector that ``refine_subpel`` can return from
+    full-pel vectors within +-sr, +-(4 sr + 5), reads inside the planes
+    (no index is clamped, as none is in vcp_tpu)."""
+    bh, bw = _bs2(bs)
+    n_by, n_bx = mvq.shape[:2]
+    h, w = bh * n_by, bw * n_bx
+    dev = planes.device
+    _, hp, wp = planes.shape
+    tab = constant("qpel_table", _QPEL_TABLE, dev)              # (16, 6)
+    src_off = (tab[:, 0::3] * (hp * wp) + tab[:, 1::3] * wp
+               + tab[:, 2::3])                                  # (16, 2)
+    mv = mvq.to(torch.int64)
+    case = (mv[..., 0] & 3) * 4 + (mv[..., 1] & 3)
+    base = ((mv[..., 0] >> 2) + margin + row0) * wp \
+        + (mv[..., 1] >> 2) + margin
+    off = base[..., None] + src_off[case]                       # (nBy, nBx, 2)
+    pix = torch.arange(h, device=dev)[:, None] * wp \
+        + torch.arange(w, device=dev)[None, :]
+    flat = planes.reshape(-1)
+    p1 = flat[pix + _px(off[..., 0], bh, bw)]
+    p2 = flat[pix + _px(off[..., 1], bh, bw)]
+    return (p1 + p2 + 1) >> 1
+
+
+def refine_quarter(cur: torch.Tensor, planes: torch.Tensor,
+                   mvq: torch.Tensor, lam: int, margin: int, row0: int = 0,
+                   bs=16) -> torch.Tensor:
+    """Quarter-pel refinement around a half-pel result: starting from the
+    cost of ``mvq`` (SAD + lam * ((|dy| + |dx|) >> 1)), each of the eight
+    neighbours in turn, taken around the vector that wins so far, replaces
+    it only at a strictly lower cost. The walk can move a vector by up to
+    3 quarters along an axis."""
+    bh, bw = _bs2(bs)
+    n_by, n_bx = mvq.shape[:2]
+    cur_b = cur.reshape(n_by, bh, n_bx, bw)
+    steps = constant("quarter_steps", _QUARTER_STEPS, cur.device,
+                     torch.int32)
+
+    def cost_of(m):
+        pred = mc_luma_q(planes, m, margin, row0, bs)
+        return (cur_b - pred.reshape(n_by, bh, n_bx, bw)).abs() \
+            .sum(dim=(1, 3), dtype=torch.int32) + _mv_rate(m, lam)
+
+    mvq = mvq.to(torch.int32)
+    best = cost_of(mvq)
+    for k in range(len(_QUARTER_STEPS)):
+        cand = mvq + steps[k]
+        c = cost_of(cand)
+        better = c < best
+        mvq = torch.where(better[..., None], cand, mvq)
+        best = torch.minimum(c, best)
+    return mvq
+
+
+def refine_subpel(cur: torch.Tensor, planes: torch.Tensor,
+                  mv_full: torch.Tensor, lam: int, margin: int,
+                  quarter: bool = False, row0: int = 0,
+                  bs=16) -> torch.Tensor:
+    """Full-pel vectors -> sub-pel: half-pel always (``refine_half``),
+    quarter-pel on top with ``quarter``."""
+    mvq = refine_half(cur, planes, mv_full, lam, margin, row0, bs)
+    if quarter:
+        mvq = refine_quarter(cur, planes, mvq, lam, margin, row0, bs)
+    return mvq

@@ -6,6 +6,7 @@ the chroma DC, and the quantizer / dequantizer (level = (|W| * MF + f) >>
 qbits, qbits = 15 + qP/6; DC variants use 2f and qbits + 1). Blocks are
 shaped (..., 4, 4) with arbitrary leading dims; every op stays int32 on
 the tensor's own device. QP is a plain Python int argument of each call.
+Numpy versions of the inverse path (``*_np``) serve the host decoder.
 """
 
 from __future__ import annotations
@@ -212,3 +213,68 @@ def from_blocks4(blocks: torch.Tensor) -> torch.Tensor:
     """(..., H/4, W/4, 4, 4) → (..., H, W)."""
     *lead, hb, wb, _, _ = blocks.shape
     return blocks.movedim(-2, -3).reshape(*lead, hb * 4, wb * 4)
+
+
+# ---------------------------------------------------------------------------
+# Numpy versions of the inverse path (host decoder)
+# ---------------------------------------------------------------------------
+# The host H.264 decoder inverts one macroblock (or one MB row) at a time;
+# these carry the same integer math as the tensor versions above.
+
+def idct4_np(coeffs):
+    w = np.asarray(coeffs, np.int32)
+    e0 = w[..., :, 0] + w[..., :, 2]
+    e1 = w[..., :, 0] - w[..., :, 2]
+    e2 = (w[..., :, 1] >> 1) - w[..., :, 3]
+    e3 = w[..., :, 1] + (w[..., :, 3] >> 1)
+    y = np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], axis=-1)
+    e0 = y[..., 0, :] + y[..., 2, :]
+    e1 = y[..., 0, :] - y[..., 2, :]
+    e2 = (y[..., 1, :] >> 1) - y[..., 3, :]
+    e3 = y[..., 1, :] + (y[..., 3, :] >> 1)
+    out = np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], axis=-2)
+    return (out + 32) >> 6
+
+
+def hadamard4_np(blocks):
+    x = np.asarray(blocks, np.int32)
+    a = x[..., 0, :] + x[..., 3, :]
+    b = x[..., 1, :] + x[..., 2, :]
+    c = x[..., 1, :] - x[..., 2, :]
+    d = x[..., 0, :] - x[..., 3, :]
+    y = np.stack([a + b, d + c, a - b, d - c], axis=-2)
+    a = y[..., :, 0] + y[..., :, 3]
+    b = y[..., :, 1] + y[..., :, 2]
+    c = y[..., :, 1] - y[..., :, 2]
+    d = y[..., :, 0] - y[..., :, 3]
+    return np.stack([a + b, d + c, a - b, d - c], axis=-1)
+
+
+def hadamard2_np(blocks):
+    x = np.asarray(blocks, np.int32)
+    s0 = x[..., 0, :] + x[..., 1, :]
+    s1 = x[..., 0, :] - x[..., 1, :]
+    y = np.stack([s0, s1], axis=-2)
+    return np.stack([y[..., :, 0] + y[..., :, 1],
+                     y[..., :, 0] - y[..., :, 1]], axis=-1)
+
+
+def dequant4_np(levels, qp: int):
+    v = np.asarray(V_TABLE)[qp % 6]
+    return np.asarray(levels, np.int32) * v << (qp // 6)
+
+
+def dequant_dc4_np(levels, qp: int):
+    v00 = int(V_TABLE[qp % 6, 0, 0])
+    per = qp // 6
+    f = hadamard4_np(levels)
+    if per >= 2:
+        return (f * v00) << (per - 2)
+    return (f * v00 + (1 << (1 - per))) >> (2 - per)
+
+
+def dequant_dc2_np(levels, qp: int):
+    v00 = int(V_TABLE[qp % 6, 0, 0])
+    per = qp // 6
+    f = hadamard2_np(levels)
+    return (f * v00 << per) >> 1

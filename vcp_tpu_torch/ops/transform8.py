@@ -7,7 +7,8 @@ the quantizer (MF8 multipliers, qbits = 16 + qp/6) and dequantizer (spec
 8.5.13.1 levelScale8x8 with the flat weight scale folded out), the 8x8
 (de)tiling and the 8x8 zig-zag scan. Blocks are shaped (..., 8, 8) with
 arbitrary leading dims; every op stays int32 on the tensor's own device.
-QP is a plain Python int argument of each call.
+QP is a plain Python int argument of each call. Numpy versions of the
+inverse path (``*_np``) serve the host decoder.
 """
 
 from __future__ import annotations
@@ -191,3 +192,56 @@ def unzigzag8(scan: torch.Tensor) -> torch.Tensor:
     """(..., 64) scan-order levels → (..., 8, 8) blocks."""
     out = scan[..., constant("unzigzag8x8", _UNZIGZAG_8x8, scan.device)]
     return out.reshape(*scan.shape[:-1], 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# Numpy versions of the inverse path (host decoder)
+# ---------------------------------------------------------------------------
+
+def unzigzag8_np(scan):
+    """(..., 64) scan-order levels → (..., 8, 8) coefficient blocks."""
+    scan = np.asarray(scan)
+    out = np.zeros(scan.shape, scan.dtype)
+    out[..., ZIGZAG_8x8] = scan
+    return out.reshape(*scan.shape[:-1], 8, 8)
+
+
+def _inv8_1d_np(w, axis_rows: bool):
+    def g(i):
+        return w[..., i, :] if axis_rows else w[..., :, i]
+
+    a0 = g(0) + g(4)
+    a2 = g(0) - g(4)
+    a4 = (g(2) >> 1) - g(6)
+    a6 = g(2) + (g(6) >> 1)
+    b0 = a0 + a6
+    b2 = a2 + a4
+    b4 = a2 - a4
+    b6 = a0 - a6
+    a1 = -g(3) + g(5) - g(7) - (g(7) >> 1)
+    a3 = g(1) + g(7) - g(3) - (g(3) >> 1)
+    a5 = -g(1) + g(7) + g(5) + (g(5) >> 1)
+    a7 = g(3) + g(5) + g(1) + (g(1) >> 1)
+    b1 = a1 + (a7 >> 2)
+    b7 = a7 - (a1 >> 2)
+    b3 = a3 + (a5 >> 2)
+    b5 = (a3 >> 2) - a5
+    outs = [b0 + b7, b2 + b5, b4 + b3, b6 + b1,
+            b6 - b1, b4 - b3, b2 - b5, b0 - b7]
+    return np.stack(outs, axis=-2 if axis_rows else -1)
+
+
+def idct8_np(coeffs):
+    w = np.asarray(coeffs, np.int32)
+    y = _inv8_1d_np(w, axis_rows=False)
+    out = _inv8_1d_np(y, axis_rows=True)
+    return (out + 32) >> 6
+
+
+def dequant8_np(levels, qp: int):
+    v = np.asarray(V8_TABLE)[qp % 6]
+    per = qp // 6
+    prod = np.asarray(levels, np.int32) * v
+    if per >= 2:
+        return prod << (per - 2)
+    return (prod + (1 << (1 - per))) >> (2 - per)

@@ -1,7 +1,9 @@
 """Task executor: parse a task's ffmpeg-style argument string and run
 the matching engine. Port of ``vcp_tpu/pipeline/executor.py`` for the
 H.264 engine; other engines raise ``NotImplementedError`` naming their
-ROADMAP item. The deadline is cooperative (checked between GOPs)."""
+ROADMAP item. Every other failure becomes :class:`EncodeError`, chained
+to its cause, as in vcp_tpu (a consumer acks and drops the task). The
+deadline is cooperative (checked between GOPs)."""
 
 from __future__ import annotations
 
@@ -17,14 +19,20 @@ class EncodeError(RuntimeError):
 def execute(input_path: str, output_path: str, ffmpeg_args: str,
             timeout: float = 3600.0, device: str = "cuda") -> int:
     """Run one task's encode on ``device``; returns the output size in
-    bytes. Raises :class:`EncodeError` on bad arguments or a failed
-    encode, ``NotImplementedError`` for a setting not ported yet."""
+    bytes. Raises :class:`EncodeError` on any failure (bad arguments, a
+    missing or undecodable input, a failed kernel build or launch), and
+    ``NotImplementedError`` unchanged for a setting not ported yet."""
     deadline = time.monotonic() + timeout
     try:
         params = parse_encode_args(ffmpeg_args)
     except ArgsError as e:
         raise EncodeError(f"bad encode args: {e}") from e
-    return _dispatch(input_path, output_path, params, deadline, device)
+    try:
+        return _dispatch(input_path, output_path, params, deadline, device)
+    except (EncodeError, NotImplementedError):
+        raise
+    except Exception as e:
+        raise EncodeError(f"{type(e).__name__}: {e}") from e
 
 
 def _dispatch(input_path: str, output_path: str, params: EncodeParams,
@@ -37,12 +45,8 @@ def _dispatch(input_path: str, output_path: str, params: EncodeParams,
                                   "(ROADMAP A6)")
     if params.video_codec == "h264":
         from ..codec.h264 import encoder as h264
-        from ..codec.h264.encoder import EncodeAbort
-        try:
-            return h264.encode_file(input_path, output_path, params,
-                                    deadline, device=device)
-        except EncodeAbort as e:
-            raise EncodeError(str(e)) from e
+        return h264.encode_file(input_path, output_path, params, deadline,
+                                device=device)
     if params.video_codec == "h265":
         raise NotImplementedError("HEVC is not ported yet (ROADMAP A9)")
     raise EncodeError(f"no engine for video codec {params.video_codec!r}")
