@@ -38,6 +38,16 @@ counters zeroed just before and read just after:
   path has just written, demuxed and decoded on the host
   (``stage_s["decode"]``) and encoded again.
 
+Phase 3b runs the containers, audio, copy and scaling paths, each with
+the launch counts zeroed just before and read just after: ``-p
+h264-nvenc`` from the ``h264-nvenc`` path's MP4 with 48 kHz stereo audio
+as MP4 + AAC, MKV + AAC and AVI + s16 PCM (the same video NAL units out
+of all three; each audio track there, re-encoded and decodable to the
+clip's length), ``-p copy`` of the MP4 (byte-identical) and of the MKV
+(its blocks and AAC frames in an MP4), ``-vn -c:a aac -b:a 128k`` (one
+sound track) and 12 frames of 2160p with ``-vf scale=1920:-2``; and it
+holds ``bilinear_resize`` on the card against the CPU.
+
 It checks each MP4 (with the composition offsets of B streams), checks
 that the quality paths used the tools they add (quarter-pel vectors on
 the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
@@ -718,17 +728,18 @@ def gop_cts(n: int, b: int) -> list[int]:
 
 def check_mp4(path: str, n_frames: int, idrs: list[int],
               cts: list[int] | None = None,
-              fps: tuple[int, int] = (30, 1)) -> None:
-    """Top-level boxes, sample count, sample entry, sync samples, a
-    frame duration of 1 / ``fps`` (num, den) and the ctts box: present
-    with these per-sample composition offsets (frames) when ``cts`` is
-    given, absent otherwise."""
+              fps: tuple[int, int] = (30, 1), faststart: bool = True) -> None:
+    """Top-level boxes (moov first with ``faststart``), sample count,
+    sample entry, sync samples, a frame duration of 1 / ``fps`` (num,
+    den) and the ctts box: present with these per-sample composition
+    offsets (frames) when ``cts`` is given, absent otherwise."""
     import struct
     from vcp_tpu_torch.codec import mp4
     with open(path, "rb") as fh:
         buf = fh.read()
     top = [t for t, _, _ in mp4.iter_boxes(buf)]
-    if top != [b"ftyp", b"moov", b"mdat"]:
+    if top != [b"ftyp", *((b"moov", b"mdat") if faststart
+                          else (b"mdat", b"moov"))]:
         raise AssertionError(f"top-level boxes {top}")
     stbl = [b"moov", b"trak", b"mdia", b"minf", b"stbl"]
     ps, _ = mp4.find_box(buf, stbl + [b"stsz"])
@@ -815,9 +826,11 @@ def observe_encoder(seen: dict):
     every IDR, the t8 MBs, half-pel vectors, intra MBs and partitioned
     MBs of every P slice, the MBs of each B mode and the B MBs without
     residual of every B slice, the vectors of P and B slices and those
-    with a quarter phase, and per P anchor the intra overlay's gate
+    with a quarter phase, per P anchor the intra overlay's gate
     and the host seconds of the partition search and of the overlay (its
-    dispatch: the device runs behind)."""
+    dispatch: the device runs behind), and the host seconds of each
+    ``audio_track_for`` (AAC decode and encode, or PCM encode)."""
+    from vcp_tpu_torch.codec import audio
     from vcp_tpu_torch.codec.h264 import (bframe, encoder, entropy,
                                           intra_rd, pframe)
     from vcp_tpu_torch.ops import motion
@@ -825,7 +838,8 @@ def observe_encoder(seen: dict):
     real_i, real_p = entropy.write_islice, entropy.write_pslice
     real_b = bframe.write_bslice
     timed = [(motion, "full_search_parts"), (motion, "hier_search_parts"),
-             (intra_rd, "intra_overlay_pass"), (pframe, "_overlay_gate")]
+             (intra_rd, "intra_overlay_pass"), (pframe, "_overlay_gate"),
+             (audio, "audio_track_for")]
     real_timed = [getattr(m, k) for m, k in timed]
 
     def timer(key, fn):
@@ -895,11 +909,13 @@ def observe_encoder(seen: dict):
 def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
                   idrs: list[int], must_launch: tuple[str, ...],
                   env: dict | None = None, cts: list[int] | None = None,
-                  src: str | None = None) -> tuple[dict, dict]:
+                  src: str | None = None,
+                  faststart: bool = True) -> tuple[dict, dict]:
     """One CLI encode on cuda with every launch count set to 0 just before
     and read just after; returns (launches by kernel, what was seen). The
     input is ``frames`` written as a Y4M file, or the file ``src`` (then
-    ``frames`` gives only the count and size)."""
+    ``frames`` gives only the count and size). ``faststart``: the args
+    carry ``-movflags +faststart``."""
     from vcp_tpu_torch import cli
     from vcp_tpu_torch.codec.y4m import write_y4m
     dst = os.path.join(tmp, f"{label}.mp4")
@@ -929,7 +945,7 @@ def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
     if missing:
         raise AssertionError(f"kernels not launched on the main path "
                              f"{label}: {missing}")
-    check_mp4(dst, len(frames), idrs, cts)
+    check_mp4(dst, len(frames), idrs, cts, faststart=faststart)
     return launches, seen
 
 
@@ -997,6 +1013,346 @@ def check_b_tools(label: str, seen: dict) -> None:
     missing = [k for k in keys if not seen.get(k, 0) > 0]
     if missing:
         raise AssertionError(f"{label}: no MB counted in {missing}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: containers, audio, copy and scaling
+# ---------------------------------------------------------------------------
+
+AUDIO_RATE = 48000
+AUDIO_BITRATE = 128000
+AUDIO_SNR_FLOOR_DB = 20.0    # decoded AAC vs its source, per codec pass
+AAC_DELAY = 1024             # samples of delay each AAC encode adds
+SCALE_SRC = (2160, 3840)     # the scaled path's source frames
+SCALE_OUT = (1080, 1920)     # what -vf scale=1920:-2 makes of them
+SCALE_FRAMES = 12
+RESIZE_SHAPES = ((2160, 3840, 1080, 1920), (1080, 1920, 720, 1280))
+MKV_TICK_NS = 11111          # Matroska timestamp scale: ~1 / 90 kHz
+MKV_FRAME_TICKS = 3000       # 1 / 30 s
+
+
+def two_tone(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 2) int16 at 48 kHz: 440 Hz left, 1 kHz right, seeded noise."""
+    t = np.arange(n) / AUDIO_RATE
+    rng = np.random.default_rng(seed)
+    x = np.stack([9000 * np.sin(2 * np.pi * 440 * t),
+                  7000 * np.sin(2 * np.pi * 1000 * t + 0.3)], 1)
+    x = x + rng.normal(0, 200, (n, 2))
+    return np.clip(np.round(x), -32768, 32767).astype(np.int16)
+
+
+def _ebml(eid: int, payload: bytes) -> bytes:
+    """One EBML element with an 8-byte size."""
+    import struct
+    return (eid.to_bytes((eid.bit_length() + 7) // 8, "big")
+            + struct.pack(">Q", len(payload) | (1 << 56)) + payload)
+
+
+def _ebml_uint(eid: int, v: int) -> bytes:
+    return _ebml(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big"))
+
+
+def write_mkv(path: str, video, audio) -> None:
+    """Matroska, 1 / 90 kHz ticks: ``video`` (avcC, width, height,
+    [(length-prefixed sample, keyframe)]) at 30 fps and ``audio``
+    (AudioSpecificConfig, [AU]) at 1024 samples a frame, as unlaced
+    SimpleBlocks in timestamp order, a cluster every 8 frames."""
+    import struct
+    from vcp_tpu_torch.codec import mkv
+    avcc, w, h, samples = video
+    asc, aus = audio
+    tracks = _ebml(mkv.TRACKS, _ebml(mkv.TRACK_ENTRY, (
+        _ebml_uint(mkv.TRACK_NUMBER, 1) + _ebml_uint(mkv.TRACK_TYPE, 1)
+        + _ebml(mkv.CODEC_ID, b"V_MPEG4/ISO/AVC")
+        + _ebml(mkv.CODEC_PRIVATE, avcc)
+        + _ebml(mkv.VIDEO, _ebml_uint(mkv.PIXEL_WIDTH, w)
+                + _ebml_uint(mkv.PIXEL_HEIGHT, h))))
+        + _ebml(mkv.TRACK_ENTRY, (
+            _ebml_uint(mkv.TRACK_NUMBER, 2) + _ebml_uint(mkv.TRACK_TYPE, 2)
+            + _ebml(mkv.CODEC_ID, b"A_AAC") + _ebml(mkv.CODEC_PRIVATE, asc)
+            + _ebml(mkv.AUDIO, _ebml(mkv.SAMPLING_FREQUENCY,
+                                     struct.pack(">d", AUDIO_RATE))
+                    + _ebml_uint(mkv.CHANNELS, 2)))))
+    ticks_per_au = 1024 / AUDIO_RATE * 1e9 / MKV_TICK_NS
+    blocks = sorted(
+        [(i * MKV_FRAME_TICKS, 1, d, key) for i, (d, key) in
+         enumerate(samples)]
+        + [(int(k * ticks_per_au), 2, d, True) for k, d in enumerate(aus)],
+        key=lambda b: b[0])
+    span = 8 * MKV_FRAME_TICKS
+    clusters = {}
+    for ts, track, data, key in blocks:
+        base = ts // span * span
+        clusters[base] = clusters.get(base, b"") + _ebml(
+            mkv.SIMPLE_BLOCK, bytes([0x80 | track])
+            + struct.pack(">hB", ts - base, 0x80 if key else 0) + data)
+    body = b"".join(_ebml(mkv.CLUSTER, _ebml_uint(mkv.CLUSTER_TIMESTAMP, b)
+                          + c) for b, c in sorted(clusters.items()))
+    info = _ebml(mkv.INFO, _ebml_uint(mkv.TIMESTAMP_SCALE, MKV_TICK_NS))
+    with open(path, "wb") as fh:
+        fh.write(_ebml(mkv.EBML_HEADER, b"")
+                 + _ebml(mkv.SEGMENT, info + tracks + body))
+
+
+def write_avi(path: str, chunks: list, w: int, h: int, pcm) -> None:
+    """AVI: ``00dc`` chunks of Annex-B access units (fourcc H264, 30 fps)
+    and ``01wb`` chunks of s16 stereo PCM, with ``idx1``."""
+    import struct
+
+    def chunk(ckid, payload):
+        return (ckid + struct.pack("<I", len(payload)) + payload
+                + b"\x00" * (len(payload) & 1))
+
+    def strh(kind, handler, scale, rate, length):
+        return chunk(b"strh", kind + handler + struct.pack(
+            "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, scale, rate, 0, length, 0,
+            0xFFFFFFFF, 0, 0, 0, w, h))
+
+    hdrl = [chunk(b"avih", struct.pack("<14I", 33333, 0, 0, 0x10,
+                                       len(chunks), 0, 2, 0, w, h, 0, 0, 0,
+                                       0)),
+            chunk(b"LIST", b"strl" + strh(b"vids", b"H264", 1, 30,
+                                          len(chunks))
+                  + chunk(b"strf", struct.pack(
+                      "<IiiHH4sIiiII", 40, w, h, 1, 24, b"H264", w * h * 3,
+                      0, 0, 0, 0))),
+            chunk(b"LIST", b"strl" + strh(b"auds", b"\x00" * 4, 1,
+                                          AUDIO_RATE, len(pcm))
+                  + chunk(b"strf", struct.pack(
+                      "<HHIIHH", 1, 2, AUDIO_RATE, AUDIO_RATE * 4, 4, 16)))]
+    per = -(-len(pcm) // len(chunks))
+    movi = []
+    for i, c in enumerate(chunks):
+        movi.append(chunk(b"00dc", c))
+        movi.append(chunk(b"01wb", pcm[i * per:(i + 1) * per]
+                          .astype("<i2").tobytes()))
+    idx = chunk(b"idx1", b"".join(struct.pack("<4sIII", m[:4], 0x10, 0, 0)
+                                  for m in movi))
+    body = (b"AVI " + chunk(b"LIST", b"hdrl" + b"".join(hdrl))
+            + chunk(b"LIST", b"movi" + b"".join(movi)) + idx)
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def make_av_inputs(tmp: str, video_mp4: str) -> dict:
+    """The video of ``video_mp4`` (the h264-nvenc path's MP4) beside 48 kHz
+    stereo audio of the same length, as MP4 + AAC-LC (the port's encoder,
+    128 kb/s), Matroska + the same AAC frames (unlaced SimpleBlocks in
+    decode order) and AVI + the s16 PCM. Returns the paths, the PCM and
+    the AUs."""
+    import struct
+    from vcp_tpu_torch.codec import mp4
+    from vcp_tpu_torch.codec.aac import AacEncoder
+    d = mp4.Mp4Demuxer(video_mp4)
+    v = d.video
+    samples = [(d.sample(v, i), i in v.sync_samples)
+               for i in range(v.sample_count)]
+    pcm = two_tone(v.sample_count * AUDIO_RATE // 30)
+    t0 = time.monotonic()
+    enc = AacEncoder(rate=AUDIO_RATE, channels=2, bitrate=AUDIO_BITRATE)
+    aus = enc.encode(pcm)
+    log(f"  inputs: {len(aus)} AAC frames of {len(pcm)} samples encoded in "
+        f"{time.monotonic() - t0:.3f} s")
+    asc = enc.audio_specific_config()
+    out = {k: os.path.join(tmp, f"{k}-in.{k.split('-')[0]}")
+           for k in ("mp4-aac", "mkv-aac", "avi-pcm")}
+    w = mp4.Mp4Writer()
+    vt = mp4.VideoTrack(codec="h264", width=v.width, height=v.height,
+                        timescale=v.timescale, sps=v.sps, pps=v.pps)
+    vt.samples = [mp4.Sample(data=s, duration=dur, is_sync=key)
+                  for (s, key), dur in zip(samples, v.sample_durations)]
+    at = mp4.AudioTrack(codec="aac", sample_rate=AUDIO_RATE, channels=2,
+                        timescale=AUDIO_RATE, decoder_config=asc,
+                        avg_bitrate=AUDIO_BITRATE)
+    at.samples = [mp4.Sample(data=a, duration=1024) for a in aus]
+    w.add_track(vt)
+    w.add_track(at)
+    w.write(out["mp4-aac"])
+    sps, pps = v.sps[0], v.pps[0]
+    avcc = (bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1])
+            + struct.pack(">H", len(sps)) + sps
+            + bytes([1]) + struct.pack(">H", len(pps)) + pps)
+    write_mkv(out["mkv-aac"], (avcc, v.width, v.height, samples),
+              (asc, aus))
+    annexb = [b"".join(b"\x00\x00\x00\x01" + n
+                       for n in d.sample_nals(v, i))
+              for i in range(v.sample_count)]
+    annexb[0] = b"".join(b"\x00\x00\x00\x01" + n for n in (sps, pps)) \
+        + annexb[0]
+    write_avi(out["avi-pcm"], annexb, v.width, v.height, pcm)
+    return {"paths": out, "pcm": pcm, "aus": aus, "asc": asc,
+            "video": [s for s, _ in samples]}
+
+
+def video_samples(path: str) -> list:
+    from vcp_tpu_torch.codec import mp4
+    d = mp4.Mp4Demuxer(path)
+    return [d.sample(d.video, i) for i in range(d.video.sample_count)]
+
+
+def check_audio(label: str, path: str, av: dict, passes: int,
+                same_aus: bool) -> None:
+    """The MP4's AAC track: there, 48 kHz stereo with the source's
+    AudioSpecificConfig and as many frames; re-encoded, not passed
+    through (``same_aus``: equal to the source's AUs, which a PCM source
+    encoded at the same bitrate gives); decoded by the port's AAC decoder
+    to the clip's length and within AUDIO_SNR_FLOOR_DB of the source
+    PCM after ``passes`` codec delays. A swallowed audio failure (no
+    track, or the source passed through) fails here."""
+    from vcp_tpu_torch.codec import mp4
+    from vcp_tpu_torch.codec.aac_decode import AacDecoder
+    d = mp4.Mp4Demuxer(path)
+    a = d.audio
+    if a is None or a.codec != "mp4a":
+        raise AssertionError(f"{label}: no AAC track in the output")
+    aus = [d.sample(a, i) for i in range(a.sample_count)]
+    if (a.sample_rate, a.channels, a.decoder_config) != (
+            AUDIO_RATE, 2, av["asc"]) or len(aus) != len(av["aus"]):
+        raise AssertionError(f"{label}: audio track {a.sample_rate} Hz, "
+                             f"{a.channels} ch, {len(aus)} frames")
+    if (aus == av["aus"]) != same_aus:
+        raise AssertionError(f"{label}: the AAC frames were "
+                             f"{'not ' if same_aus else ''}re-encoded")
+    t0 = time.monotonic()
+    dec = AacDecoder(AUDIO_RATE, 2)
+    pcm = np.concatenate([dec.decode_frame(x) for x in aus])
+    dt = time.monotonic() - t0
+    src = av["pcm"].astype(np.float64)
+    lag = passes * AAC_DELAY
+    n = min(len(src), len(pcm) - lag)
+    err = pcm[lag:lag + n] - src[:n]
+    snr = 10 * np.log10((src[:n] ** 2).sum() / max((err ** 2).sum(), 1e-9))
+    log(f"  {label} audio: {len(aus)} AAC frames, decoded to {len(pcm)} "
+        f"samples in {dt:.3f} s, SNR {snr:.2f} dB against the source after "
+        f"{passes} codec pass(es) (floor {AUDIO_SNR_FLOOR_DB})")
+    if not (np.isfinite(pcm).all() and len(pcm) >= len(src)
+            and snr >= AUDIO_SNR_FLOOR_DB):
+        raise AssertionError(f"{label}: decoded audio {len(pcm)} samples, "
+                             f"SNR {snr:.2f} dB")
+
+
+def run_host_path(label: str, src: str, tmp: str, cli_args: list[str],
+                  content_s: float) -> tuple[str, dict]:
+    """A CLI call that runs no video encode (copy, audio only), with the
+    launch counts set to 0 just before and read just after."""
+    from vcp_tpu_torch import cli
+    dst = os.path.join(tmp, f"{label}.mp4")
+    counters = launch_counters()
+    seen: dict = {}
+    with observe_encoder(seen):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.monotonic()
+        rc = cli.main(["encode", src, dst, *cli_args, "--device", DEVICE])
+        wall = time.monotonic() - t0
+        launches = {k: getattr(fn, attr)
+                    for k, (fn, attr) in counters.items()}
+    if rc != 0:
+        raise RuntimeError(f"{label}: cli encode exited {rc}")
+    audio_s = sum(seen.get("audio_track_for", []))
+    log(f"  {label}: {wall:.3f} s, audio_track_for {audio_s:.3f} s "
+        f"({audio_s / content_s:.3f} s per second of content), launches "
+        f"{launches}")
+    return dst, launches
+
+
+def check_resize(dev) -> None:
+    """``bilinear_resize`` on the card against the CPU, every plane of
+    4:2:0 frames at the shipped scalings: exact equality; its ms."""
+    from vcp_tpu_torch.ops.scale import bilinear_resize
+    rng = np.random.default_rng(11)
+    for h, w, oh, ow in RESIZE_SHAPES:
+        for name, (ph, pw, qh, qw) in (("y", (h, w, oh, ow)),
+                                       ("u", (h // 2, w // 2, oh // 2,
+                                              ow // 2)),
+                                       ("v", (h // 2, w // 2, oh // 2,
+                                              ow // 2))):
+            x = torch.from_numpy(rng.integers(0, 256, (ph, pw),
+                                              dtype=np.uint8))
+            xd = x.to(dev)
+            err = max_abs_err((bilinear_resize(xd, qh, qw).cpu(),),
+                              (bilinear_resize(x, qh, qw),))
+            ms = time_ms(lambda: bilinear_resize(xd, qh, qw), dev, 20)
+            log(f"  bilinear_resize {name} {ph}x{pw} -> {qh}x{qw}: "
+                f"max_abs_err {err}, {ms:.4f} ms on the card")
+            if err != 0:
+                raise AssertionError("bilinear_resize: cuda != cpu")
+
+
+def run_containers(tmp: str, frames, by_path: dict) -> None:
+    """Phase 3b: ``-p h264-nvenc`` from an MP4 with AAC, an MKV with AAC
+    and an AVI with PCM (the same video: the same NAL units out, each
+    audio track there and re-encoded); ``-p copy`` of the MP4 (the same
+    bytes) and of the MKV (its blocks and AAC frames in an MP4); ``-vn
+    -c:a aac -b:a 128k``; and ``-vf scale=1920:-2`` of 2160p frames."""
+    import filecmp
+    from vcp_tpu_torch.codec import mp4
+    from vcp_tpu_torch.codec.y4m import write_y4m
+    from vcp_tpu_torch.ops.scale import scale_yuv420
+    av = make_av_inputs(tmp, os.path.join(tmp, "h264-nvenc.mp4"))
+    content_s = len(frames) / 30
+    kernels = ("motion_search", "deblock_fast", "deblock_general")
+    nals = {}
+    for label in ("mp4-aac", "mkv-aac", "avi-pcm"):
+        by_path[label], seen = run_main_path(
+            label, frames, tmp, ["-p", "h264-nvenc"], [0, SCENE_CUT],
+            kernels, src=av["paths"][label])
+        audio_s = sum(seen.get("audio_track_for", []))
+        log(f"  {label}: audio_track_for {audio_s:.3f} s "
+            f"({audio_s / content_s:.3f} s per second of content)")
+        out = os.path.join(tmp, f"{label}.mp4")
+        check_audio(label, out, av, passes=1 if label == "avi-pcm" else 2,
+                    same_aus=label == "avi-pcm")
+        check_decoder(out, frames)
+        nals[label] = video_samples(out)
+    if not nals["mp4-aac"] == nals["mkv-aac"] == nals["avi-pcm"]:
+        raise AssertionError("the three containers gave different video "
+                             "NAL units")
+    log(f"  video NAL units of mp4-aac == mkv-aac == avi-pcm: True "
+        f"({len(nals['mp4-aac'])} samples)")
+
+    dst, by_path["copy"] = run_host_path(
+        "copy", av["paths"]["mp4-aac"], tmp, ["-p", "copy"], content_s)
+    if not filecmp.cmp(dst, av["paths"]["mp4-aac"], shallow=False):
+        raise AssertionError("copy of an MP4 is not byte-identical")
+    check_mp4(dst, len(frames), [0, SCENE_CUT])
+    log("  copy: byte-identical to its input (filecmp)")
+    dst, by_path["copy-mkv"] = run_host_path(
+        "copy-mkv", av["paths"]["mkv-aac"], tmp, ["-p", "copy"], content_s)
+    d = mp4.Mp4Demuxer(dst)
+    if video_samples(dst) != av["video"] or [
+            d.sample(d.audio, i) for i in range(d.audio.sample_count)] \
+            != av["aus"]:
+        raise AssertionError("copy of an MKV: samples differ from its "
+                             "blocks")
+    check_mp4(dst, len(frames), [0, SCENE_CUT])
+    check_decoder(dst, frames)
+    log("  copy-mkv: video samples == the MKV blocks, audio samples == "
+        "the AAC frames")
+
+    dst, by_path["audio-only"] = run_host_path(
+        "audio-only", av["paths"]["mp4-aac"], tmp,
+        ["--ffmpeg-args=-vn -c:a aac -b:a 128k"], content_s)
+    handlers = [t.handler for t in mp4.Mp4Demuxer(dst).tracks]
+    if handlers != ["soun"]:
+        raise AssertionError(f"audio-only: tracks {handlers}")
+    check_audio("audio-only", dst, av, passes=2, same_aus=False)
+
+    h, w = SCALE_SRC
+    big = synth_frames(h, w, SCALE_FRAMES, SCALE_FRAMES)
+    src = os.path.join(tmp, "scale-2160p.y4m")
+    write_y4m(src, big, 30, 1)
+    oh, ow = SCALE_OUT
+    by_path["scale-2160p"], _ = run_main_path(
+        "scale-2160p", big, tmp, ["--ffmpeg-args=-c:v h264_nvenc -preset p4 "
+                                  f"-b:v 10M -vf scale={ow}:-2"], [0],
+        kernels, src=src, faststart=False)
+    dst = os.path.join(tmp, "scale-2160p.mp4")
+    v = mp4.Mp4Demuxer(dst).video
+    log(f"  scale-2160p: {v.width}x{v.height} from {w}x{h}")
+    if (v.height, v.width) != SCALE_OUT:
+        raise AssertionError(f"scaled output {v.width}x{v.height}")
+    check_decoder(dst, [scale_yuv420(*f, oh, ow, DEVICE) for f in big])
 
 
 # ---------------------------------------------------------------------------
@@ -1245,6 +1601,10 @@ def main(argv: list[str]) -> int:
         check_quality_tools("h264-nvenc-hq", seen)
         check_qpel_tools("h264-nvenc-hq", seen)
         check_b_tools("h264-nvenc-hq", seen)
+        log("phase 3b: containers, audio, copy, scaling "
+            f"({time.monotonic() - t_start:.1f} s)")
+        run_containers(tmp, frames, by_path)
+        check_resize(dev)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")

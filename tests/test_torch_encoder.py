@@ -77,7 +77,7 @@ def test_no_jax_or_vcp_tpu_imports():
     """Importing every module of the port, and chip_smoke.py, pulls in
     neither jax nor vcp_tpu; neither does a host decode of an H.264
     stream (the decoder, its native parser and reconstruction, the host
-    deblock) or an MP4 ingest."""
+    deblock), an AAC encode or a resize."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import vcp_tpu_torch\n"
@@ -88,6 +88,11 @@ def test_no_jax_or_vcp_tpu_imports():
         "from vcp_tpu_torch.codec.h264.decoder import H264Decoder\n"
         f"data = open({GOLDEN!r}, 'rb').read()\n"
         "assert len(H264Decoder().decode_annexb(data)) == 24\n"
+        "import numpy, torch\n"
+        "from vcp_tpu_torch.codec.aac import AacEncoder\n"
+        "from vcp_tpu_torch.ops.scale import bilinear_resize\n"
+        "assert len(AacEncoder().encode(numpy.zeros(2048))) == 2\n"
+        "assert bilinear_resize(torch.zeros(8, 8), 4, 4).shape == (4, 4)\n"
         "need = ['vcp_tpu_torch.codec.ingest',"
         " 'vcp_tpu_torch.codec.h264.decoder',"
         " 'vcp_tpu_torch.codec.h264.native_parse',"
@@ -128,17 +133,14 @@ def test_default_device_raises_without_cuda(monkeypatch, frames, tmp_path,
     ("h264-nvenc", {"VCP_BFRAMES": "2", "VCP_T8": "1"},
      "8x8 transform below effort 5.*A1c"),
     ("h265-nvenc", {}, "HEVC"),
-    ("copy", {}, "copy preset"),
     (f"={QUALITY}", {"VCP_T8": "0"}, "VCP_T8=0.*A1c"),
     (f"={QUALITY}", {"VCP_RDI": "0"}, "without RD intra.*A1c"),
     (f"={QUALITY}", {"VCP_CABAC": "0"}, "CAVLC"),
     ("h264-nvenc-hq", {"VCP_T8": "0"}, "effort 7 without the 8x8.*A1c"),
     ("=-c:v libx264 -preset slower -bf 0", {"VCP_RDI": "0"},
      "effort 7 without RD intra.*A1c"),
-    ("=-c:v libx264 -preset veryslow -s 64x48", {}, "scaling.*A5c"),
     ("=-c:v h264_nvenc -preset p4", {"VCP_T8": "1"}, "8x8 transform below"),
     ("=-c:v h264_nvenc -preset p4", {"VCP_RDI": "1"}, "RD intra below"),
-    ("=-c:v h264_nvenc -preset p4 -vf scale=48:-2", {}, "scaling.*A5c"),
     ("=-c:v h264_nvenc -preset p4 -bf 2", {"VCP_INTRA_P": "1"},
      "intra overlay without partitions.*A1c"),
 ])
@@ -158,10 +160,14 @@ def test_settings_outside_the_slice_raise(preset, env, match, frames,
 
 
 def test_mp4_input_raises(frames, tmp_path):
-    """An MP4 input that carries an AAC track raises naming A6 (vcp_tpu
-    would mux the track; the port never drops it), as does an audio-only
-    task."""
+    """An MP4 input that carries an AAC track (mono, 44.1 kHz): the
+    default preset re-encodes the track at 128 kb/s beside the video, and
+    ``-vn -c:a aac`` (no bitrate) passes it through alone; both MP4s
+    equal vcp_tpu's byte for byte."""
     from vcp_tpu.codec import mp4 as jm
+    from vcp_tpu.codec.aac import AacEncoder
+    from vcp_tpu_torch.codec import mp4 as tm
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
     from vcp_tpu_torch.pipeline import executor as t_executor
     src = str(tmp_path / "in.y4m")
     write_y4m(src, frames[:2])
@@ -173,20 +179,30 @@ def test_mp4_input_raises(frames, tmp_path):
                        pps=d.video.pps)
     tr.samples = [jm.Sample(data=d.sample(d.video, i), duration=1000,
                             is_sync=i == 0) for i in range(2)]
+    enc = AacEncoder(rate=44100, channels=1, bitrate=96000)
+    t = np.arange(3000) / 44100
+    aus = enc.encode((8000 * np.sin(2 * np.pi * 330 * t)).astype(np.int16))
     au = jm.AudioTrack(codec="aac", sample_rate=44100, channels=1,
-                       timescale=44100, decoder_config=b"\x12\x08")
-    au.samples = [jm.Sample(data=b"\x21\x10", duration=1024, is_sync=True)]
+                       timescale=44100,
+                       decoder_config=enc.audio_specific_config())
+    au.samples = [jm.Sample(data=a, duration=1024) for a in aus]
+    assert au.decoder_config == b"\x12\x08"
     w = jm.Mp4Writer()
     w.add_track(tr)
     w.add_track(au)
     av = str(tmp_path / "av.mp4")
     w.write(av)
-    with pytest.raises(NotImplementedError, match="AAC track.*A6"):
-        t_cli.main(["encode", av, str(tmp_path / "o.mp4"), "--device",
-                    "cpu"])
-    with pytest.raises(NotImplementedError, match="audio-only.*A6"):
-        t_executor.execute(av, str(tmp_path / "o.mp4"), "-vn -c:a aac",
-                           device="cpu")
+    for args, handlers in ((BUILTIN_PRESETS["h264-nvenc"], ["vide", "soun"]),
+                           ("-vn -c:a aac", ["soun"])):
+        ref, out = str(tmp_path / "ref.mp4"), str(tmp_path / "o.mp4")
+        j_executor.execute(av, ref, args)
+        t_executor.execute(av, out, args, device="cpu")
+        with open(ref, "rb") as a, open(out, "rb") as b:
+            assert a.read() == b.read()
+        d = tm.Mp4Demuxer(out)
+        assert [x.handler for x in d.tracks] == handlers
+        got = [d.sample(d.audio, i) for i in range(d.audio.sample_count)]
+        assert len(got) == len(aus) and (got == aus) == ("-vn" in args)
 
 
 @pytest.mark.parametrize("args", [

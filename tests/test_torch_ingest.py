@@ -1,8 +1,8 @@
 """MP4 / H.264 ingest of vcp_tpu_torch against vcp_tpu on the CPU: the
 host decoder frame by frame on libx264 streams and on the port's own
 MP4s, the demuxer's sample tables, MP4 -> MP4 transcodes through both
-executors, and the inputs that are not ported yet (an AAC track, other
-containers, HEVC), tolerance 0."""
+executors (with an AAC track too), garbage in the other containers, and
+HEVC input, which is not ported yet, tolerance 0."""
 
 import dataclasses
 import glob
@@ -128,9 +128,10 @@ def test_decoder_cavlc_mp4(port_mp4s, tmp_path, monkeypatch):
     assert min(psnr(g[0], f[0]) for g, f in zip(got, frames)) > 30.0
 
 
-def _with_audio(tmp_path, video_mp4, name="av.mp4"):
-    """The video track of ``video_mp4`` plus an AAC track of 3 samples,
-    written by vcp_tpu's muxer."""
+def _with_audio(tmp_path, video_mp4, name="av.mp4", aus=None):
+    """The video track of ``video_mp4`` plus an AAC track (48 kHz stereo)
+    of ``aus``, by default 3 made-up samples, written by vcp_tpu's
+    muxer."""
     d = j_mp4.Mp4Demuxer(video_mp4)
     v = d.video
     tr = j_mp4.VideoTrack(codec="h264", width=v.width, height=v.height,
@@ -141,9 +142,10 @@ def _with_audio(tmp_path, video_mp4, name="av.mp4"):
             is_sync=i in v.sync_samples))
     au = j_mp4.AudioTrack(codec="aac", sample_rate=48000, channels=2,
                           timescale=48000, decoder_config=b"\x11\x90")
-    for k in range(3):
-        au.samples.append(j_mp4.Sample(data=bytes([0x21, k, 0x40]),
-                                       duration=1024, is_sync=True))
+    if aus is None:
+        aus = [bytes([0x21, k, 0x40]) for k in range(3)]
+    for a in aus:
+        au.samples.append(j_mp4.Sample(data=a, duration=1024, is_sync=True))
     w = j_mp4.Mp4Writer()
     w.add_track(tr)
     w.add_track(au)
@@ -184,23 +186,40 @@ def test_mp4_to_mp4_identical(port_mp4s, tmp_path):
 
 
 def test_aac_track_raises(port_mp4s, tmp_path):
-    """vcp_tpu muxes an input's AAC track; the port raises naming A6
-    instead of dropping it, and with ``-an`` matches vcp_tpu's file."""
-    src = _with_audio(tmp_path, port_mp4s["h264-nvenc"][0])
-    with pytest.raises(NotImplementedError, match="AAC.*A6"):
-        t_executor.execute(src, str(tmp_path / "o.mp4"), NVENC,
-                           device="cpu")
-    _execute_both(src, tmp_path, NVENC + " -an")
+    """An MP4 input with an AAC track (48 kHz stereo, the clip's length):
+    ``-p h264-nvenc`` decodes the track and encodes it again at 128 kb/s,
+    and the MP4 equals vcp_tpu's byte for byte; with ``-an`` too, without
+    the track."""
+    from vcp_tpu.codec.aac import AacEncoder
+    t = np.arange(9 * 1600) / 48000
+    pcm = np.stack([6000 * np.sin(2 * np.pi * 440 * t),
+                    6000 * np.sin(2 * np.pi * 550 * t)], 1).astype(np.int16)
+    enc = AacEncoder(rate=48000, channels=2, bitrate=192000)
+    assert enc.audio_specific_config() == b"\x11\x90"
+    aus = enc.encode(pcm)
+    src = _with_audio(tmp_path, port_mp4s["h264-nvenc"][0], aus=aus)
+    out = _execute_both(src, tmp_path, NVENC)
+    d = t_mp4.Mp4Demuxer(out)
+    got = [d.sample(d.audio, i) for i in range(d.audio.sample_count)]
+    assert len(got) == len(aus) and got != aus
+    out = _execute_both(src, tmp_path, NVENC + " -an")
+    assert t_mp4.Mp4Demuxer(out).audio is None
 
 
 @pytest.mark.parametrize("ext", [".mkv", ".webm", ".avi"])
 def test_other_containers_raise(ext, tmp_path):
+    """64 zero bytes in a Matroska / WebM / AVI file: the same
+    EncodeError text from both executors."""
     path = str(tmp_path / f"in{ext}")
     with open(path, "wb") as fh:
         fh.write(b"\x00" * 64)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        t_executor.execute(path, str(tmp_path / "o.mp4"), NVENC,
-                           device="cpu")
+    errors = []
+    for execute, error in ((j_executor.execute, j_executor.EncodeError),
+                           (t_executor.execute, t_executor.EncodeError)):
+        with pytest.raises(error) as info:
+            execute(path, str(tmp_path / "o.mp4"), NVENC)
+        errors.append(str(info.value))
+    assert errors[0] == errors[1] and errors[0].startswith("IngestError: ")
 
 
 def test_hevc_mp4_raises(port_mp4s, tmp_path):

@@ -17,8 +17,10 @@ quality shapes (efforts 5-9: pyramid or exhaustive full-pel search
 refined to half-pel at efforts 5-6 and to quarter-pel at 7-9, adaptive
 8x8 transform, RD intra IDR with I16 and i8 MBs, High profile), by
 default with 2 B pictures, partitioned P anchors and intra MBs in P
-pictures. ``encode_file`` reads a Y4M file or decodes an H.264 MP4 on
-the host (``codec.ingest``). Settings outside these raise
+pictures. ``encode_file`` reads a Y4M file or decodes H.264 in MP4, MKV
+or AVI on the host (``codec.ingest``), scales on the device for ``-s`` /
+``-vf scale`` (``ops.scale``) and muxes the input's audio track
+(``codec.audio``). Settings outside these raise
 ``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 
@@ -34,6 +36,7 @@ import torch
 
 from .. import mp4 as mp4mod
 from ...device import resolve_device
+from ...ops.scale import scale_yuv420
 from ...ops.transform import chroma_qp
 from ..args import EncodeParams
 from . import entropy, gop_ops, headers
@@ -567,7 +570,7 @@ def encode_stream(frames, cfg: EncoderConfig, deadline: float | None = None,
 
 def mux_mp4(path: str, sps: bytes, pps: bytes, samples, width: int,
             height: int, fps_num: int, fps_den: int,
-            faststart: bool = True) -> None:
+            faststart: bool = True, audio_track=None) -> None:
     w = mp4mod.Mp4Writer()
     dur = fps_den * 1000
     tr = mp4mod.VideoTrack(codec="h264", width=width, height=height,
@@ -578,40 +581,62 @@ def mux_mp4(path: str, sps: bytes, pps: bytes, samples, width: int,
             data=mp4mod.annexb_to_length_prefixed(s[0]),
             duration=dur, is_sync=s[1], cts_offset=cts * dur))
     w.add_track(tr)
+    if audio_track is not None and audio_track.samples:
+        w.add_track(audio_track)
     w.write(path, faststart=faststart)
 
 
-def _aac_track_raises(input_path: str, audio, params: EncodeParams) -> None:
-    """vcp_tpu muxes an MP4 input's AAC track (``audio``, from ingest)
-    into the output under ``-c:a aac|copy`` without ``-an``; until audio
-    is ported, such an input raises rather than lose its track."""
-    if params.audio_disabled or params.audio_codec not in ("aac", "copy"):
-        return
-    if audio is not None and audio.codec == "mp4a" and audio.sample_count:
-        raise NotImplementedError(
-            f"input {input_path!r} carries an AAC track: audio is not "
-            "ported yet (ROADMAP A6)")
+def resolve_scale(sw: int, sh: int, src_w: int, src_h: int):
+    """Resolve an ffmpeg-style scale target against the source size:
+    (height, width), or None for no scaling. ``-1`` / ``-2`` keep the
+    source aspect ratio, rounded to even (4:2:0 needs even planes)."""
+    if not sw and not sh:
+        return None
+    if sw in (-1, -2) and sh in (-1, -2):
+        raise ValueError("scale: width and height cannot both be -1/-2")
+    if sw in (-1, -2):
+        sw = max(2, int(round(src_w * sh / src_h / 2)) * 2)
+    elif sh in (-1, -2):
+        sh = max(2, int(round(src_h * sw / src_w / 2)) * 2)
+    if sw <= 0 or sh <= 0:
+        raise ValueError(f"scale: bad target {sw}x{sh}")
+    return (sh, sw)
 
 
 def encode_file(input_path: str, output_path: str, params: EncodeParams,
                 deadline: float | None = None, device: str = "cuda") -> int:
-    """Encode a .y4m or an H.264 .mp4 file to MP4 on ``device``; returns
-    the output size. MP4 inputs are decoded on the host
-    (``codec.ingest``)."""
+    """Encode a .y4m, or an H.264 .mp4 / .mkv / .avi file, to MP4 on
+    ``device``; returns the output size. Inputs are decoded on the host
+    (``codec.ingest``); ``-s`` / ``-vf scale`` resizes each frame on
+    ``device``; under ``-c:a aac|copy`` without ``-an`` the input's audio
+    goes into the MP4 (``codec.audio.audio_track_for``), and an audio
+    track that fails is logged and left out, as in ``vcp_tpu``."""
     from ..ingest import open_video
-    if params.scale_width or params.scale_height:
-        raise NotImplementedError("scaling (-s / -vf scale) is not ported "
-                                  "yet (ROADMAP A5c)")
     vid = open_video(input_path)
-    _aac_track_raises(input_path, vid.audio, params)
-    cfg = EncoderConfig.from_params(params, width=vid.width,
-                                    height=vid.height, fps_num=vid.fps_num,
-                                    fps_den=vid.fps_den)
+    w, h = vid.width, vid.height
+    tgt = resolve_scale(params.scale_width, params.scale_height, w, h)
+    cfg = EncoderConfig.from_params(params, width=tgt[1] if tgt else w,
+                                    height=tgt[0] if tgt else h,
+                                    fps_num=vid.fps_num, fps_den=vid.fps_den)
     t0 = time.monotonic()
-    sps, pps, samples = encode_stream(vid.frames, cfg, deadline,
-                                      device=device)
+
+    def frames():
+        for y, u, v in vid.frames:
+            if tgt is not None:
+                y, u, v = scale_yuv420(y, u, v, tgt[0], tgt[1], device)
+            yield y, u, v
+
+    sps, pps, samples = encode_stream(frames(), cfg, deadline, device=device)
+    audio_track = None
+    if params.audio_codec in ("aac", "copy") and not params.audio_disabled:
+        from ..audio import audio_track_for
+        try:
+            audio_track = audio_track_for(input_path, params)
+        except Exception as e:
+            log.warning("audio passthrough failed: error=%s", e)
     mux_mp4(output_path, sps, pps, samples, cfg.width, cfg.height,
-            cfg.fps_num, cfg.fps_den, faststart=params.faststart)
+            cfg.fps_num, cfg.fps_den, faststart=params.faststart,
+            audio_track=audio_track)
     dt = time.monotonic() - t0
     size = os.path.getsize(output_path)
     log.info("encode done: frames=%d qp=%d fps=%.1f size=%d", len(samples),

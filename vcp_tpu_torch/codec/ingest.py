@@ -1,14 +1,15 @@
-"""Input ingestion: raw Y4M or MP4 (H.264) -> YUV 4:2:0 frames.
+"""Input ingestion: raw Y4M, or H.264 in MP4, Matroska / WebM or AVI
+-> YUV 4:2:0 frames.
 
-Copy of ``open_video``, ``_open_y4m`` and ``_open_mp4`` of
-``vcp_tpu/codec/ingest.py``. MP4 inputs are demuxed by
-``codec.mp4.Mp4Demuxer`` and decoded on the host by
+Copy of ``vcp_tpu/codec/ingest.py`` but its HEVC branch. Containers are
+demuxed by ``codec.mp4.Mp4Demuxer``, ``codec.mkv.MkvDemuxer`` and
+``codec.avi.AviDemuxer`` and decoded on the host by
 ``codec.h264.decoder.H264Decoder``, which covers streams up to libx264's
 default output (High profile, CABAC, multi-ref, partitions, weighted
-prediction, B-pyramid). Containers and codecs that are not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item: MKV / WebM / AVI
-(A5b) and HEVC in MP4 (A9). An input outside what ``vcp_tpu`` reads
-raises :class:`IngestError`, as there.
+prediction, B-pyramid). Matroska blocks are decoded in block-timestamp
+order, as in ``vcp_tpu``. HEVC in MP4 is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item (A9). An input outside
+what ``vcp_tpu`` reads raises :class:`IngestError`, as there.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ class VideoInput:
     fps_den: int
     num_frames: int
     frames: Iterator  # yields (y, u, v) uint8 planes
-    audio: object = None  # an MP4 input's audio track (mp4.DemuxedTrack)
 
 
 class IngestError(ValueError):
@@ -39,11 +39,12 @@ def open_video(path: str) -> VideoInput:
         return _open_y4m(path)
     if ext in (".mp4", ".mov", ".m4v"):
         return _open_mp4(path)
-    if ext in (".mkv", ".webm", ".avi"):
-        raise NotImplementedError(f"{ext} input is not ported yet (ROADMAP "
-                                  "A5b)")
+    if ext in (".mkv", ".webm"):
+        return _open_mkv(path)
+    if ext == ".avi":
+        return _open_avi(path)
     raise IngestError(f"unsupported input container: {ext} "
-                      "(supported: .y4m raw, .mp4/.mov/.m4v)")
+                      "(supported: .y4m raw, .mp4/.mov/.mkv/.webm/.avi)")
 
 
 def _open_y4m(path: str) -> VideoInput:
@@ -93,5 +94,76 @@ def _open_mp4(path: str) -> VideoInput:
         for f in dec.drain(flush=True):
             yield f.y, f.u, f.v
 
-    return VideoInput(track.width, track.height, fps_num, fps_den, n, gen(),
-                      demux.audio)
+    return VideoInput(track.width, track.height, fps_num, fps_den, n, gen())
+
+
+def _open_avi(path: str) -> VideoInput:
+    """H.264 in AVI carries Annex-B NAL units per video chunk; each chunk
+    feeds the host decoder directly."""
+    from .avi import H264_FOURCCS, AviDemuxer, AviError
+    from .h264.decoder import H264Decoder
+    from .mp4 import split_annexb
+
+    try:
+        demux = AviDemuxer(path)
+    except AviError as e:
+        raise IngestError(str(e)) from e
+    t = demux.video
+    if t is None:
+        raise IngestError("avi: no video stream")
+    if t.fourcc not in H264_FOURCCS:
+        raise IngestError(f"avi: unsupported video fourcc {t.fourcc!r} "
+                          "(h264 only)")
+    n = len(t.chunks)
+
+    def gen():
+        dec = H264Decoder()
+        for i in range(n):
+            for nal in split_annexb(t.chunks[i]):
+                dec._decode_nal(nal)
+            for f in dec.drain():
+                yield f.y, f.u, f.v
+        for f in dec.drain(flush=True):
+            yield f.y, f.u, f.v
+
+    return VideoInput(t.width, t.height, t.rate, t.scale, n, gen())
+
+
+def _open_mkv(path: str) -> VideoInput:
+    from .h264.decoder import H264Decoder
+    from .mkv import MkvDemuxer, MkvError
+    from .mp4 import parse_avcc
+
+    try:
+        demux = MkvDemuxer(path)
+    except MkvError as e:
+        raise IngestError(str(e)) from e
+    t = demux.video
+    if t is None or t.codec_id != "V_MPEG4/ISO/AVC":
+        raise IngestError("mkv: no h264 video track")
+    nal_len, sps, pps = parse_avcc(t.codec_private)
+
+    samples = sorted(t.samples, key=lambda s: s.timestamp_ns)
+    n = len(samples)
+    if t.default_duration_ns:
+        fps_num, fps_den = 1_000_000_000, t.default_duration_ns
+    else:
+        fps_num, fps_den = 30, 1
+
+    def gen():
+        dec = H264Decoder()
+        for nal in sps + pps:
+            dec._decode_nal(nal)
+        for i in range(n):
+            data = samples[i].data
+            pos = 0
+            while pos + nal_len <= len(data):
+                ln = int.from_bytes(data[pos:pos + nal_len], "big")
+                dec._decode_nal(data[pos + nal_len:pos + nal_len + ln])
+                pos += nal_len + ln
+            for f in dec.drain():
+                yield f.y, f.u, f.v
+        for f in dec.drain(flush=True):
+            yield f.y, f.u, f.v
+
+    return VideoInput(t.width, t.height, fps_num, fps_den, n, gen())

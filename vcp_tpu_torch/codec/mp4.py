@@ -1,13 +1,17 @@
-"""MP4 (ISO BMFF) muxing of one H.264 video track, and demuxing.
+"""MP4 (ISO BMFF) muxing of an H.264 video track and an AAC-LC audio
+track, and demuxing.
 
-Copy of the writer half of ``vcp_tpu/codec/mp4.py`` (video only):
-:class:`Mp4Writer` writes moov before mdat for ``-movflags +faststart``,
+Copy of the writer half of ``vcp_tpu/codec/mp4.py``: :class:`Mp4Writer`
+writes moov before mdat for ``-movflags +faststart``, one chunk per track,
 with length-prefixed NAL samples, an avcC sample entry and, for streams
-with B pictures, a ctts box of composition-time offsets. ``iter_boxes``
-/ ``find_box`` walk a file's box tree. And a copy of its demuxer,
-:class:`Mp4Demuxer`, which the ingest of MP4 inputs reads: every track's
-sample tables (stsc / stco / co64 / stsz / stts / stss), the avcC / hvcC
-parameter sets and the AAC AudioSpecificConfig of an mp4a track.
+with B pictures, a ctts box of composition-time offsets; an
+:class:`AudioTrack` gets an mp4a sample entry with its esds descriptor
+(AudioSpecificConfig, average bitrate), an smhd header and unit volume.
+``iter_boxes`` / ``find_box`` walk a file's box tree. And a copy of its
+demuxer, :class:`Mp4Demuxer`, which the ingest of MP4 inputs and the
+audio path read: every track's sample tables (stsc / stco / co64 / stsz /
+stts / stss), the avcC / hvcC parameter sets and the AAC
+AudioSpecificConfig of an mp4a track.
 """
 
 from __future__ import annotations
@@ -115,7 +119,7 @@ def _parse_trak(buf: bytes, ps: int, pe: int) -> TrackInfo:
 
 @dataclasses.dataclass
 class Sample:
-    data: bytes              # length-prefixed NALs
+    data: bytes              # length-prefixed NALs (video) or one AAC AU
     duration: int            # in track timescale units
     is_sync: bool = True
     cts_offset: int = 0      # composition-time offset (B pictures)
@@ -129,6 +133,17 @@ class VideoTrack:
     timescale: int           # e.g. 90000 or fps*1000
     sps: list[bytes] = dataclasses.field(default_factory=list)
     pps: list[bytes] = dataclasses.field(default_factory=list)
+    samples: list[Sample] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class AudioTrack:
+    codec: str               # "aac"
+    sample_rate: int
+    channels: int
+    timescale: int           # == sample_rate
+    decoder_config: bytes = b""   # AudioSpecificConfig
+    avg_bitrate: int = 0
     samples: list[Sample] = dataclasses.field(default_factory=list)
 
 
@@ -147,16 +162,43 @@ def _avcc_box(tr: VideoTrack) -> bytes:
     return box(b"avcC", cfg.getvalue())
 
 
-def _sample_entry(tr: VideoTrack) -> bytes:
-    body = (b"\x00" * 6 + struct.pack(">H", 1)      # reserved + dref idx
-            + b"\x00" * 16
-            + struct.pack(">HH", tr.width, tr.height)
-            + struct.pack(">II", 0x480000, 0x480000)  # 72 dpi
+def _esds_box(tr: AudioTrack) -> bytes:
+    dcfg = tr.decoder_config
+
+    def desc(tag: int, payload: bytes) -> bytes:
+        # 4-byte expandable length encoding
+        n = len(payload)
+        size = bytes([(n >> 21) & 0x7F | 0x80, (n >> 14) & 0x7F | 0x80,
+                      (n >> 7) & 0x7F | 0x80, n & 0x7F])
+        return bytes([tag]) + size + payload
+
+    dec_specific = desc(0x05, dcfg)
+    dec_config = desc(0x04, struct.pack(">BBBHII", 0x40, 0x15, 0, 0,
+                                        tr.avg_bitrate or 128000,
+                                        tr.avg_bitrate or 128000)
+                      + dec_specific)
+    sl_config = desc(0x06, b"\x02")
+    es = desc(0x03, struct.pack(">HB", 1, 0) + dec_config + sl_config)
+    return full_box(b"esds", 0, 0, es)
+
+
+def _sample_entry(tr) -> bytes:
+    if isinstance(tr, VideoTrack):
+        body = (b"\x00" * 6 + struct.pack(">H", 1)      # reserved + dref idx
+                + b"\x00" * 16
+                + struct.pack(">HH", tr.width, tr.height)
+                + struct.pack(">II", 0x480000, 0x480000)  # 72 dpi
+                + b"\x00" * 4
+                + struct.pack(">H", 1)                   # frame count
+                + b"\x00" * 32                           # compressor name
+                + struct.pack(">Hh", 0x18, -1))          # depth, color table
+        return box(b"avc1", body + _avcc_box(tr))
+    body = (b"\x00" * 6 + struct.pack(">H", 1)
+            + b"\x00" * 8
+            + struct.pack(">HH", tr.channels, 16)
             + b"\x00" * 4
-            + struct.pack(">H", 1)                   # frame count
-            + b"\x00" * 32                           # compressor name
-            + struct.pack(">Hh", 0x18, -1))          # depth, color table
-    return box(b"avc1", body + _avcc_box(tr))
+            + struct.pack(">I", tr.sample_rate << 16))
+    return box(b"mp4a", body + _esds_box(tr))
 
 
 def _stts(samples: list[Sample]) -> bytes:
@@ -171,7 +213,7 @@ def _stts(samples: list[Sample]) -> bytes:
     return full_box(b"stts", 0, 0, body)
 
 
-def _stbl(tr: VideoTrack, chunk_offsets: list[int]) -> bytes:
+def _stbl(tr, chunk_offsets: list[int]) -> bytes:
     samples = tr.samples
     stsd = full_box(b"stsd", 0, 0, struct.pack(">I", 1), _sample_entry(tr))
     stts = _stts(samples)
@@ -206,11 +248,14 @@ def _stbl(tr: VideoTrack, chunk_offsets: list[int]) -> bytes:
     return box(b"stbl", *parts)
 
 
-def _trak(tr: VideoTrack, track_id: int, movie_timescale: int,
+def _trak(tr, track_id: int, movie_timescale: int,
           chunk_offsets: list[int]) -> bytes:
     dur_ts = sum(s.duration for s in tr.samples)
     dur_movie = int(round(dur_ts * movie_timescale / max(1, tr.timescale)))
-    w, h, volume = tr.width << 16, tr.height << 16, 0
+    is_video = isinstance(tr, VideoTrack)
+    w = (tr.width << 16) if is_video else 0
+    h = (tr.height << 16) if is_video else 0
+    volume = 0 if is_video else 0x0100
     tkhd = full_box(b"tkhd", 0, 7,
                     struct.pack(">IIIII", 0, 0, track_id, 0, dur_movie),
                     b"\x00" * 8,
@@ -220,9 +265,11 @@ def _trak(tr: VideoTrack, track_id: int, movie_timescale: int,
     mdhd = full_box(b"mdhd", 0, 0,
                     struct.pack(">IIII", 0, 0, tr.timescale, dur_ts),
                     struct.pack(">HH", 0x55C4, 0))  # 'und'
-    hdlr = full_box(b"hdlr", 0, 0, b"\x00" * 4, b"vide", b"\x00" * 12,
-                    b"VideoHandler\x00")
-    mhd = full_box(b"vmhd", 0, 1, b"\x00" * 8)
+    handler = b"vide" if is_video else b"soun"
+    name = b"VideoHandler\x00" if is_video else b"SoundHandler\x00"
+    hdlr = full_box(b"hdlr", 0, 0, b"\x00" * 4, handler, b"\x00" * 12, name)
+    mhd = (full_box(b"vmhd", 0, 1, b"\x00" * 8) if is_video
+           else full_box(b"smhd", 0, 0, b"\x00" * 4))
     dinf = box(b"dinf", full_box(b"dref", 0, 0, struct.pack(">I", 1),
                                  full_box(b"url ", 0, 1)))
     minf = box(b"minf", mhd, dinf, _stbl(tr, chunk_offsets))
@@ -327,6 +374,25 @@ class DemuxedTrack:
         return len(self.sample_sizes)
 
 
+def parse_avcc(avcc: bytes) -> tuple[int, list[bytes], list[bytes]]:
+    """(NAL length size, SPS list, PPS list) of an avcC record, the H.264
+    decoder configuration of MP4 and Matroska tracks."""
+    nal_length_size = (avcc[4] & 3) + 1
+    sps, pps = [], []
+    off = 6
+    for _ in range(avcc[5] & 0x1F):
+        ln, = struct.unpack_from(">H", avcc, off)
+        sps.append(avcc[off + 2:off + 2 + ln])
+        off += 2 + ln
+    n_pps = avcc[off]
+    off += 1
+    for _ in range(n_pps):
+        ln, = struct.unpack_from(">H", avcc, off)
+        pps.append(avcc[off + 2:off + 2 + ln])
+        off += 2 + ln
+    return nal_length_size, sps, pps
+
+
 def _parse_esds_asc(es: bytes) -> bytes:
     """Walk the ES descriptor tree and return the AudioSpecificConfig
     (DecSpecificInfo, tag 0x05)."""
@@ -406,7 +472,8 @@ class Mp4Demuxer:
                 if btype == b"avc1":
                     avcc = find_box(buf, [b"avcC"], eps + 78, epe)
                     if avcc:
-                        self._parse_avcc(buf[avcc[0]:avcc[1]], t)
+                        (t.nal_length_size, t.sps,
+                         t.pps) = parse_avcc(buf[avcc[0]:avcc[1]])
         elif stsd and info.codec in ("hvc1", "hev1"):
             for btype, eps, epe in iter_boxes(buf, stsd[0] + 8, stsd[1]):
                 if btype in (b"hvc1", b"hev1"):
@@ -486,22 +553,6 @@ class Mp4Demuxer:
         else:
             t.sync_samples = set(range(count))
         return t
-
-    @staticmethod
-    def _parse_avcc(avcc: bytes, t: DemuxedTrack) -> None:
-        t.nal_length_size = (avcc[4] & 3) + 1
-        n_sps = avcc[5] & 0x1F
-        off = 6
-        for _ in range(n_sps):
-            ln, = struct.unpack_from(">H", avcc, off)
-            t.sps.append(avcc[off + 2:off + 2 + ln])
-            off += 2 + ln
-        n_pps = avcc[off]
-        off += 1
-        for _ in range(n_pps):
-            ln, = struct.unpack_from(">H", avcc, off)
-            t.pps.append(avcc[off + 2:off + 2 + ln])
-            off += 2 + ln
 
     @staticmethod
     def _parse_hvcc(hvcc: bytes, t: DemuxedTrack) -> None:

@@ -1,14 +1,22 @@
 """Task executor: parse a task's ffmpeg-style argument string and run
-the matching engine. Port of ``vcp_tpu/pipeline/executor.py`` for the
-H.264 engine; other engines raise ``NotImplementedError`` naming their
-ROADMAP item. Every other failure becomes :class:`EncodeError`, chained
-to its cause, as in vcp_tpu (a consumer acks and drops the task). The
-deadline is cooperative (checked between GOPs)."""
+the matching engine. Port of ``vcp_tpu/pipeline/executor.py``:
+
+* ``-c copy``      -> byte-identical stream copy, or an MKV remux
+  (``codec.copy``);
+* ``-vn -c:a aac`` -> an audio-only MP4 (``codec.audio``);
+* ``-c:v h264_*``  -> the H.264 encoder on ``device``;
+* ``-c:v hevc_*``  -> ``NotImplementedError`` naming its ROADMAP item.
+
+Every other failure becomes :class:`EncodeError`, chained to its cause,
+as in vcp_tpu (a consumer acks and drops the task); a ``CopyError``
+keeps its own text. The deadline is cooperative (checked between GOPs
+and between copied chunks)."""
 
 from __future__ import annotations
 
 import time
 
+from ..codec import copy as copycodec
 from ..codec.args import ArgsError, EncodeParams, parse_encode_args
 
 
@@ -31,6 +39,8 @@ def execute(input_path: str, output_path: str, ffmpeg_args: str,
         return _dispatch(input_path, output_path, params, deadline, device)
     except (EncodeError, NotImplementedError):
         raise
+    except copycodec.CopyError as e:
+        raise EncodeError(str(e)) from e
     except Exception as e:
         raise EncodeError(f"{type(e).__name__}: {e}") from e
 
@@ -38,11 +48,10 @@ def execute(input_path: str, output_path: str, ffmpeg_args: str,
 def _dispatch(input_path: str, output_path: str, params: EncodeParams,
               deadline: float, device: str) -> int:
     if params.is_copy:
-        raise NotImplementedError("the copy preset is not ported yet "
-                                  "(ROADMAP A7)")
+        return copycodec.stream_copy(input_path, output_path, deadline)
     if params.video_disabled:
-        raise NotImplementedError("audio-only tasks are not ported yet "
-                                  "(ROADMAP A6)")
+        from ..codec import audio
+        return audio.extract_audio(input_path, output_path, params, deadline)
     if params.video_codec == "h264":
         from ..codec.h264 import encoder as h264
         return h264.encode_file(input_path, output_path, params, deadline,
