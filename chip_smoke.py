@@ -48,6 +48,18 @@ clip's length), ``-p copy`` of the MP4 (byte-identical) and of the MKV
 sound track) and 12 frames of 2160p with ``-vf scale=1920:-2``; and it
 holds ``bilinear_resize`` on the card against the CPU.
 
+Phase 3c runs HEVC, whose engine has no kernel of its own (its device
+work is plain PyTorch), so all four kernels' counts must stay 0: ``-p
+h265-nvenc`` and ``-p h265-cpu`` on 8 frames of 1080p (a scene cut at 5),
+``-p h265-nvenc-hq`` from the phase-3b MP4 + AAC (40 frames, the audio
+re-encoded at 192 kb/s), and HEVC ingest: 4 frames encoded intra-only
+(``-g 1``) to an hvc1 MP4, decoded on the host by the foreign HEVC
+decoder and encoded with ``-p h264-nvenc``. Each hvc1 MP4 is decoded by
+the port's HEVC validation decoder (>= 30 dB against the source) in a
+child process beside the later phases; quarter-phase vectors, the RD
+paths' left-dependent intra modes and the host seconds of the CABAC
+slice writer are logged and checked.
+
 It checks each MP4 (with the composition offsets of B streams), checks
 that the quality paths used the tools they add (quarter-pel vectors on
 the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
@@ -56,12 +68,15 @@ units are byte-identical between ``cuda`` and ``cpu`` (plain versions)
 on the speed path, the quality path without B pictures, a B GOP of
 ``h264-cpu``, a B GOP of ``h264-nvenc-hq`` with ``VCP_HIER_ME=0`` (the
 search-only kernel at +-16 on both B lists) and the chunked quarter-pel
-P path (``-preset p7 -bf 0``), profiles the first three GOPs, and
-prints per-kernel times beside their bounds. Any failed phase raises, so the
-exit code is nonzero; without a CUDA device it exits 2 and prints no
-result. ``--kernels-only`` stops after the kernel checks (a short first
-run after a kernel change) and prints no result line. Imports nothing of
-JAX or of ``vcp_tpu``.
+P path (``-preset p7 -bf 0``) and IDR + 2 P of ``h265-nvenc`` and
+``h265-cpu``, profiles the first three GOPs and an ``h265-cpu`` IDR + 2
+P (with the host seconds of its CABAC), and prints per-kernel times
+beside their bounds. Any failed phase raises, so the exit code is
+nonzero; without a CUDA device it exits 2 and prints no result.
+``--kernels-only`` stops after the kernel checks (a short first run
+after a kernel change), ``--hevc-only`` runs the HEVC phases alone (the
+hq path from 12 frames); neither prints a result line. Imports nothing
+of JAX or of ``vcp_tpu``.
 """
 
 from __future__ import annotations
@@ -87,8 +102,9 @@ Q_ARGS = ("-c:v libx264 -preset medium -bf 0 -b:v 10M "
 Q_FRAMES = 12
 Q_CUT = 8
 Q_SR = 12                    # its search range (effort 5)
-B_FRAMES = 12                # frames of the paths with B pictures
-B_CUT = 8
+B_FRAMES = 5                 # frames of the paths with B pictures: one
+                             # GOP (12 frames cut at 8 until the HEVC
+                             # paths came)
 NVENC_B_ARGS = ("-c:v h264_nvenc -preset p4 -bf 2 -b:v 10M "
                 "-movflags +faststart")
 P7_ARGS = "-c:v h264_nvenc -preset p7 -bf 0 -b:v 15M"   # chunked quarter-pel
@@ -728,9 +744,11 @@ def gop_cts(n: int, b: int) -> list[int]:
 
 def check_mp4(path: str, n_frames: int, idrs: list[int],
               cts: list[int] | None = None,
-              fps: tuple[int, int] = (30, 1), faststart: bool = True) -> None:
+              fps: tuple[int, int] = (30, 1), faststart: bool = True,
+              entry: bytes = b"avc1") -> None:
     """Top-level boxes (moov first with ``faststart``), sample count,
-    sample entry, sync samples, a frame duration of 1 / ``fps`` (num,
+    sample entry (``entry``, with its avcC / hvcC box), sync samples, a
+    frame duration of 1 / ``fps`` (num,
     den) and the ctts box: present with these per-sample composition
     offsets (frames) when ``cts`` is given, absent otherwise."""
     import struct
@@ -747,13 +765,21 @@ def check_mp4(path: str, n_frames: int, idrs: list[int],
     if count != n_frames:
         raise AssertionError(f"{count} samples, expected {n_frames}")
     ps, pe = mp4.find_box(buf, stbl + [b"stsd"])
-    entries = [t for t, _, _ in mp4.iter_boxes(buf, ps + 8, pe)]
-    if entries != [b"avc1"]:
-        raise AssertionError(f"sample entries {entries}, expected avc1")
-    ps, _ = mp4.find_box(buf, stbl + [b"stss"])
-    n_sync = struct.unpack_from(">I", buf, ps + 4)[0]
-    sync = [struct.unpack_from(">I", buf, ps + 8 + 4 * i)[0] - 1
-            for i in range(n_sync)]
+    entries = list(mp4.iter_boxes(buf, ps + 8, pe))
+    if [t for t, _, _ in entries] != [entry]:
+        raise AssertionError(f"sample entries {entries}, expected {entry}")
+    cfg = {b"avc1": b"avcC", b"hvc1": b"hvcC"}[entry]
+    # the visual sample entry's own fields take 78 bytes
+    if mp4.find_box(buf, [cfg], entries[0][1] + 78, entries[0][2]) is None:
+        raise AssertionError(f"no {cfg} box in the {entry} sample entry")
+    stss = mp4.find_box(buf, stbl + [b"stss"])
+    if stss is None:                   # no stss: every sample is a sync
+        sync = list(range(count))
+    else:
+        ps = stss[0]
+        n_sync = struct.unpack_from(">I", buf, ps + 4)[0]
+        sync = [struct.unpack_from(">I", buf, ps + 8 + 4 * i)[0] - 1
+                for i in range(n_sync)]
     if sync != idrs:
         raise AssertionError(f"sync samples {sync}, expected IDRs {idrs}")
     # ticks per frame: the first stts run's sample delta, which must be
@@ -829,12 +855,20 @@ def observe_encoder(seen: dict):
     with a quarter phase, per P anchor the intra overlay's gate
     and the host seconds of the partition search and of the overlay (its
     dispatch: the device runs behind), and the host seconds of each
-    ``audio_track_for`` (AAC decode and encode, or PCM encode)."""
+    ``audio_track_for`` (AAC decode and encode, or PCM encode); for HEVC
+    the encoder objects, the host seconds of each
+    ``syntax.encode_slice_data`` (the pure-Python CABAC), the vectors of
+    P slices and those with a quarter phase, and the CTUs of IDRs with a
+    left-dependent luma mode (planar, or angular below 26)."""
     from vcp_tpu_torch.codec import audio
     from vcp_tpu_torch.codec.h264 import (bframe, encoder, entropy,
                                           intra_rd, pframe)
+    from vcp_tpu_torch.codec.h265 import encoder as h265enc
+    from vcp_tpu_torch.codec.h265 import syntax as h265syn
     from vcp_tpu_torch.ops import motion
     real_enc = encoder.H264Encoder
+    real_henc = h265enc.HevcEncoder
+    real_hslice = h265syn.encode_slice_data
     real_i, real_p = entropy.write_islice, entropy.write_pslice
     real_b = bframe.write_bslice
     timed = [(motion, "full_search_parts"), (motion, "hier_search_parts"),
@@ -855,6 +889,24 @@ def observe_encoder(seen: dict):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             seen.setdefault("encoders", []).append(self)
+
+    class ObservedHevc(real_henc):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.setdefault("encoders", []).append(self)
+
+    def hslice(qp, is_idr, ly, lu, lv, mv, modes=None):
+        t = time.monotonic()
+        out = real_hslice(qp, is_idr, ly, lu, lv, mv, modes=modes)
+        seen.setdefault("hevc_cabac_s", []).append(time.monotonic() - t)
+        if mv is not None:
+            vectors(mv)
+        if modes is not None:
+            m = np.asarray(modes)
+            _count(seen, "idr_ctus", m.size)
+            _count(seen, "left_mode_ctus", ((m == 0) | ((m >= 2)
+                                                        & (m < 26))).sum())
+        return out
 
     def islice(*a, **kw):
         i8 = kw["data"].get("i8")
@@ -892,6 +944,8 @@ def observe_encoder(seen: dict):
         return real_b(*a, **kw)
 
     encoder.H264Encoder = Observed
+    h265enc.HevcEncoder = ObservedHevc
+    h265syn.encode_slice_data = hslice
     entropy.write_islice, entropy.write_pslice = islice, pslice
     bframe.write_bslice = bslice
     for (m, k), fn in zip(timed, real_timed):
@@ -900,6 +954,8 @@ def observe_encoder(seen: dict):
         yield seen
     finally:
         encoder.H264Encoder = real_enc
+        h265enc.HevcEncoder = real_henc
+        h265syn.encode_slice_data = real_hslice
         entropy.write_islice, entropy.write_pslice = real_i, real_p
         bframe.write_bslice = real_b
         for (m, k), fn in zip(timed, real_timed):
@@ -909,13 +965,14 @@ def observe_encoder(seen: dict):
 def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
                   idrs: list[int], must_launch: tuple[str, ...],
                   env: dict | None = None, cts: list[int] | None = None,
-                  src: str | None = None,
-                  faststart: bool = True) -> tuple[dict, dict]:
+                  src: str | None = None, faststart: bool = True,
+                  entry: bytes = b"avc1") -> tuple[dict, dict]:
     """One CLI encode on cuda with every launch count set to 0 just before
     and read just after; returns (launches by kernel, what was seen). The
     input is ``frames`` written as a Y4M file, or the file ``src`` (then
     ``frames`` gives only the count and size). ``faststart``: the args
-    carry ``-movflags +faststart``."""
+    carry ``-movflags +faststart``; ``entry``: the MP4's sample entry
+    (``hvc1`` for HEVC)."""
     from vcp_tpu_torch import cli
     from vcp_tpu_torch.codec.y4m import write_y4m
     dst = os.path.join(tmp, f"{label}.mp4")
@@ -945,7 +1002,8 @@ def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
     if missing:
         raise AssertionError(f"kernels not launched on the main path "
                              f"{label}: {missing}")
-    check_mp4(dst, len(frames), idrs, cts, faststart=faststart)
+    check_mp4(dst, len(frames), idrs, cts, faststart=faststart,
+              entry=entry)
     return launches, seen
 
 
@@ -1279,7 +1337,7 @@ def check_resize(dev) -> None:
                 raise AssertionError("bilinear_resize: cuda != cpu")
 
 
-def run_containers(tmp: str, frames, by_path: dict) -> None:
+def run_containers(tmp: str, frames, by_path: dict) -> dict:
     """Phase 3b: ``-p h264-nvenc`` from an MP4 with AAC, an MKV with AAC
     and an AVI with PCM (the same video: the same NAL units out, each
     audio track there and re-encoded); ``-p copy`` of the MP4 (the same
@@ -1353,6 +1411,153 @@ def run_containers(tmp: str, frames, by_path: dict) -> None:
     if (v.height, v.width) != SCALE_OUT:
         raise AssertionError(f"scaled output {v.width}x{v.height}")
     check_decoder(dst, [scale_yuv420(*f, oh, ow, DEVICE) for f in big])
+    return av
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: HEVC
+# ---------------------------------------------------------------------------
+
+HEVC_FRAMES = 8              # 1080p frames of h265-nvenc and h265-cpu
+HEVC_CUT = 5                 # their scene cut: IDRs at 0 and 5
+HEVC_GOP = 30                # the HEVC encoder's GOP at 30 fps
+HEVC_INGEST_FRAMES = 4
+HEVC_INGEST_ARGS = ("-c:v hevc_nvenc -preset p4 -b:v 8M -g 1 "
+                    "-movflags +faststart")      # intra only: ingestable
+
+
+def hevc_idrs(n: int, cuts: tuple[int, ...], gop: int = HEVC_GOP):
+    """IDR frames of the HEVC encoder: every ``gop``-th frame it has coded
+    (a cut does not restart that count) and every scene cut."""
+    return sorted({i for i in range(n) if i % gop == 0}
+                  | {c for c in cuts if c < n})
+
+
+def check_hevc_decoder(path: str, source) -> None:
+    """The port's HEVC validation decoder on an MP4 the port wrote: every
+    frame close to the source."""
+    from vcp_tpu_torch.codec.h264.decoder import psnr
+    from vcp_tpu_torch.codec.h265.decoder import decode_mp4
+    t0 = time.monotonic()
+    frames = list(decode_mp4(path))
+    dt = time.monotonic() - t0
+    if len(frames) != len(source):
+        raise AssertionError(f"decoded {len(frames)} frames of "
+                             f"{len(source)}")
+    db = [psnr(f[0], s[0]) for f, s in zip(frames, source)]
+    log(f"  HEVC decode of {os.path.basename(path)}: {len(frames)} frames "
+        f"{frames[0][0].shape} in {dt:.3f} s, luma PSNR vs the source min "
+        f"{min(db):.2f} dB, mean {statistics.mean(db):.2f} dB (floor "
+        f"{DECODE_PSNR_FLOOR_DB})")
+    if not min(db) >= DECODE_PSNR_FLOOR_DB:
+        raise AssertionError(f"HEVC decode {min(db):.2f} dB below the "
+                             "floor")
+
+
+def check_hevc_tools(label: str, seen: dict, rd_intra: bool) -> None:
+    """The HEVC path coded quarter-phase vectors in its P slices and, on
+    the RD intra paths, left-dependent luma modes in its IDRs; logs the
+    host seconds of the CABAC slice writer."""
+    cabac = seen.get("hevc_cabac_s", [])
+    share = seen.get("quarter_pel_mvs", 0) / max(1, seen.get("mvs", 0))
+    log(f"  {label}: syntax.encode_slice_data {sum(cabac):.3f} s over "
+        f"{len(cabac)} slices ({sum(cabac) / max(1, len(cabac)):.3f} s per "
+        f"frame, max {max(cabac, default=0):.3f}); vectors with a quarter "
+        f"phase {seen.get('quarter_pel_mvs', 0)} of {seen.get('mvs', 0)} "
+        f"(share {share:.4f}); IDR CTUs with a left-dependent mode "
+        f"{seen.get('left_mode_ctus', 0)} of {seen.get('idr_ctus', 0)}")
+    if seen.get("mvs", 0) and not share > 0:
+        raise AssertionError(f"{label}: no vector has a quarter phase")
+    if rd_intra and not seen.get("left_mode_ctus", 0) > 0:
+        raise AssertionError(f"{label}: no IDR CTU chose planar or an "
+                             "angular mode below 26")
+
+
+_POOL: list = []      # (executor, directory of the MP4s it decodes)
+
+
+def submit_hevc_decode(decodes: list, path: str, source) -> None:
+    """Run ``check_hevc_decoder`` on a copy of ``path`` in one of two child
+    processes (spawned, so they share no CUDA state with this process;
+    they use no card), beside the later phases."""
+    import shutil
+    if not _POOL:
+        import concurrent.futures
+        import multiprocessing
+        _POOL.append((concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")),
+            tempfile.mkdtemp(prefix="hevc_decode_")))
+    pool, keep = _POOL[0]
+    copy = os.path.join(keep, os.path.basename(path))
+    shutil.copyfile(path, copy)
+    decodes.append(pool.submit(check_hevc_decoder, copy, source))
+
+
+def finish_decodes(decodes: list) -> None:
+    """Wait for the HEVC validation decodes (a failed one raises here),
+    stop their processes and remove their copies."""
+    import shutil
+    t0 = time.monotonic()
+    try:
+        for f in decodes:
+            f.result()
+    finally:
+        while _POOL:
+            pool, keep = _POOL.pop()
+            pool.shutdown(cancel_futures=True)
+            shutil.rmtree(keep, ignore_errors=True)
+    log(f"  HEVC validation decodes: {len(decodes)} done, waited "
+        f"{time.monotonic() - t0:.1f} s for them")
+
+
+def no_launches(label: str, launches: dict) -> None:
+    if any(launches.values()):
+        raise AssertionError(f"{label}: the HEVC path launched H.264 "
+                             f"kernels {launches}")
+
+
+def run_hevc(tmp: str, hframes, hq_src: str, hq_frames, av: dict,
+             by_path: dict, decodes: list) -> None:
+    """Phase 3c: ``-p h265-nvenc`` and ``-p h265-cpu`` from a Y4M (a scene
+    cut: 2 IDRs, 6 P frames), ``-p h265-nvenc-hq`` from ``hq_src`` (an
+    MP4 with AAC, its audio re-encoded at 192 kb/s) and HEVC ingest (an
+    intra-only HEVC MP4 of the port's, decoded on the host and encoded
+    with ``-p h264-nvenc``). Every HEVC encode launches none of the four
+    kernels. Each HEVC output's validation decode (pure Python, ~2.5 s a
+    1080p frame) runs in a child process beside the later phases; the
+    caller waits for the futures in ``decodes`` before it reports."""
+    def decode(path, source):
+        submit_hevc_decode(decodes, path, source)
+
+    for label, rd in (("h265-nvenc", False), ("h265-cpu", True)):
+        by_path[label], seen = run_main_path(
+            label, hframes, tmp, ["-p", label],
+            hevc_idrs(len(hframes), (HEVC_CUT,)), (), entry=b"hvc1")
+        no_launches(label, by_path[label])
+        check_hevc_tools(label, seen, rd)
+        decode(os.path.join(tmp, f"{label}.mp4"), hframes)
+    label = "h265-nvenc-hq"
+    by_path[label], seen = run_main_path(
+        label, hq_frames, tmp, ["-p", label],
+        hevc_idrs(len(hq_frames), (SCENE_CUT,)), (), src=hq_src,
+        entry=b"hvc1")
+    no_launches(label, by_path[label])
+    check_hevc_tools(label, seen, True)
+    out = os.path.join(tmp, f"{label}.mp4")
+    check_audio(label, out, av, passes=2, same_aus=False)
+    decode(out, hq_frames)
+
+    ing = hframes[:HEVC_INGEST_FRAMES]
+    by_path["hevc-ingest-src"], _ = run_main_path(
+        "hevc-ingest-src", ing, tmp, [f"--ffmpeg-args={HEVC_INGEST_ARGS}"],
+        list(range(len(ing))), (), entry=b"hvc1")
+    no_launches("hevc-ingest-src", by_path["hevc-ingest-src"])
+    src = os.path.join(tmp, "hevc-ingest-src.mp4")
+    decode(src, ing)
+    by_path["hevc-ingest"], _ = run_main_path(
+        "hevc-ingest", ing, tmp, ["-p", "h264-nvenc"], [0],
+        ("motion_search", "deblock_fast", "deblock_general"), src=src)
+    check_decoder(os.path.join(tmp, "hevc-ingest.mp4"), ing)
 
 
 # ---------------------------------------------------------------------------
@@ -1428,6 +1633,96 @@ def check_pyramid_pstep(frames) -> None:
                              "cuda and cpu")
 
 
+def check_devices_hevc(label: str, frames, ffargs: str) -> None:
+    """IDR + P frames of the HEVC encoder on cuda and on cpu: the same NAL
+    units, and none of the four kernels launched."""
+    from vcp_tpu_torch.codec.args import parse_encode_args
+    from vcp_tpu_torch.codec.h265.encoder import (HevcEncoder,
+                                                  HevcEncoderConfig)
+    params = parse_encode_args(ffargs)
+    h, w = frames[0][0].shape
+    counters = launch_counters()
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        cfg = HevcEncoderConfig.from_params(params, w, h, 30, 1)
+        enc = HevcEncoder(cfg, device=dev)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.monotonic()
+        out[dev] = [enc.encode_frame(*f) for f in frames]
+        launched = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+        stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
+        log(f"  {label} IDR + {len(frames) - 1} P on {dev}: "
+            f"{time.monotonic() - t0:.3f} s, qp {cfg.qp}, RD intra "
+            f"{cfg.use_rd_intra()} ({stages}), launches {launched}")
+        no_launches(label, launched)
+    a, b = out[DEVICE], out["cpu"]
+    same = a == b
+    log(f"  NAL units {DEVICE} == cpu: {same} ({len(a)} access units, "
+        f"{sum(len(x[0]) for x in a)} bytes)")
+    if not same:
+        raise AssertionError(f"{label}: cuda and cpu bitstreams differ")
+
+
+def profile_hevc(label: str, frames, ffargs: str) -> None:
+    """Device time of IDR + P frames of the HEVC encoder on cuda (device
+    activity only), the idle share, and the host seconds of the CABAC
+    slice writer, timed by wrapping ``syntax.encode_slice_data`` here."""
+    from torch.profiler import ProfilerActivity, profile
+    from vcp_tpu_torch.codec.args import parse_encode_args
+    from vcp_tpu_torch.codec.h265 import syntax
+    from vcp_tpu_torch.codec.h265.encoder import (HevcEncoder,
+                                                  HevcEncoderConfig)
+    h, w = frames[0][0].shape
+    cfg = HevcEncoderConfig.from_params(parse_encode_args(ffargs), w, h,
+                                        30, 1)
+    enc = HevcEncoder(cfg, device=DEVICE)
+    real = syntax.encode_slice_data
+    cabac: list[float] = []
+
+    def timed(*a, **kw):
+        t = time.monotonic()
+        r = real(*a, **kw)
+        cabac.append(time.monotonic() - t)
+        return r
+
+    syntax.encode_slice_data = timed
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for f in frames:
+                enc.encode_frame(*f)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        syntax.encode_slice_data = real
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)["traceEvents"]
+    by_name: dict[str, list] = {}
+    for e in trace:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            acc = by_name.setdefault(e["name"], [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.get("dur", 0) / 1e3
+    busy = sum(v[1] for v in by_name.values())
+    n = sum(v[0] for v in by_name.values())
+    if n == 0:
+        raise AssertionError("the profiler saw no device activity")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
+    log(f"  profiled {label} IDR + {len(frames) - 1} P: wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms over {n} device "
+        f"kernels/copies (idle share {1 - busy / (wall * 1e3):.3f}); host "
+        f"CABAC (syntax.encode_slice_data) {sum(cabac):.3f} s "
+        f"({', '.join(f'{c:.3f}' for c in cabac)} s per frame); {stages}")
+    for name, (cnt, ms) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][1])[:10]:
+        log(f"    {ms:9.3f} ms {cnt:6d}x  {name[:90]}")
+
+
 def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
                 env: dict | None = None) -> None:
     """Device time of one GOP on cuda, by kernel, from torch.profiler; the
@@ -1497,6 +1792,30 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
             f"{n_diag} deblock_diag device kernels")
 
 
+def run_hevc_only(frames, hframes, t_start: float) -> int:
+    """``--hevc-only``: phases 3c, 4 and 5 of the HEVC paths alone (the
+    hq path from an MP4 + AAC of 12 frames of the speed path), for a
+    short run after a change to the HEVC engine; prints no result."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    by_path: dict = {}
+    decodes: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        run_main_path("h264-nvenc", frames, tmp, ["-p", "h264-nvenc"],
+                      [0], ("motion_search",))
+        av = make_av_inputs(tmp, os.path.join(tmp, "h264-nvenc.mp4"))
+        log(f"phase 3c: HEVC ({time.monotonic() - t_start:.1f} s)")
+        run_hevc(tmp, hframes, av["paths"]["mp4-aac"], frames, av, by_path,
+                 decodes)
+    for preset in ("h265-nvenc", "h265-cpu"):
+        check_devices_hevc(preset, hframes[:3], BUILTIN_PRESETS[preset])
+    profile_hevc("h265-cpu", hframes[:3], BUILTIN_PRESETS["h265-cpu"])
+    finish_decodes(decodes)
+    log(f"HEVC phases done at {time.monotonic() - t_start:.1f} s; "
+        f"launches {by_path}")
+    print("hevc only: no result")
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1523,6 +1842,10 @@ def main(argv: list[str]) -> int:
     t0 = time.monotonic()
     native.get_lib()
     log(f"host library built in {time.monotonic() - t0:.1f} s")
+    if "--hevc-only" in argv:
+        return run_hevc_only(synth_frames(H, W, 12, 12),
+                             synth_frames_subpel(H, W, HEVC_FRAMES,
+                                                 HEVC_CUT), t_start)
 
     log("phase 2: kernels vs plain versions at 1088x1920")
     rows = [*check_motion(dev, HP, W, reps=20),
@@ -1558,10 +1881,12 @@ def main(argv: list[str]) -> int:
     log(f"phase 3: main paths, cli encode on cuda "
         f"({time.monotonic() - t_start:.1f} s)")
     frames = synth_frames(H, W, N_FRAMES, SCENE_CUT)
+    hframes = synth_frames_subpel(H, W, HEVC_FRAMES, HEVC_CUT)
     qframes = synth_frames_subpel(H, W, Q_FRAMES, Q_CUT)
-    bq = synth_frames_subpel(H, W, B_FRAMES, B_CUT)
+    bq = synth_frames_subpel(H, W, B_FRAMES, B_FRAMES)
     q_cli = [f"--ffmpeg-args={Q_ARGS}"]
     by_path = {}
+    decodes: list = []
     with tempfile.TemporaryDirectory() as tmp:
         by_path["h264-nvenc"], _ = run_main_path(
             "h264-nvenc", frames, tmp, ["-p", "h264-nvenc"],
@@ -1576,35 +1901,38 @@ def main(argv: list[str]) -> int:
             ("motion_search_only", "deblock_fast", "deblock_general"),
             env={"VCP_HIER_ME": "0"})
         check_quality_tools("medium-bf0-exhaustive", seen)
-        # GOPs of B_CUT and B_FRAMES - B_CUT frames, 2 B pictures
-        b_cts = gop_cts(B_CUT, 2) + gop_cts(B_FRAMES - B_CUT, 2)
+        # one GOP, 2 B pictures
+        b_cts = gop_cts(B_FRAMES, 2)
         for label, env, kernels in (
                 ("h264-cpu", None, ("deblock_fast", "deblock_general")),
                 ("h264-cpu-exhaustive", {"VCP_HIER_ME": "0"},
                  ("motion_search_only", "deblock_fast", "deblock_general"))):
             by_path[label], seen = run_main_path(
-                label, bq, tmp, ["-p", "h264-cpu"], [0, B_CUT], kernels,
+                label, bq, tmp, ["-p", "h264-cpu"], [0], kernels,
                 env=env, cts=b_cts)
             check_quality_tools(label, seen)
             check_b_tools(label, seen)
         by_path["nvenc-bf2"], _ = run_main_path(
-            "nvenc-bf2", synth_frames(H, W, B_FRAMES, B_CUT), tmp,
-            [f"--ffmpeg-args={NVENC_B_ARGS}"], [0, B_CUT],
+            "nvenc-bf2", synth_frames(H, W, B_FRAMES, B_FRAMES), tmp,
+            [f"--ffmpeg-args={NVENC_B_ARGS}"], [0],
             ("motion_search", "deblock_fast", "deblock_general"), cts=b_cts)
         # a real MP4 input: the h264-cpu path's file (High profile, CABAC,
         # B pictures, partitions, 8x8 transform), decoded on the host
         cpu_mp4 = os.path.join(tmp, "h264-cpu.mp4")
         check_decoder(cpu_mp4, bq)
         by_path["h264-nvenc-hq"], seen = run_main_path(
-            "h264-nvenc-hq", bq, tmp, ["-p", "h264-nvenc-hq"], [0, B_CUT],
+            "h264-nvenc-hq", bq, tmp, ["-p", "h264-nvenc-hq"], [0],
             ("deblock_fast", "deblock_general"), cts=b_cts, src=cpu_mp4)
         check_quality_tools("h264-nvenc-hq", seen)
         check_qpel_tools("h264-nvenc-hq", seen)
         check_b_tools("h264-nvenc-hq", seen)
         log("phase 3b: containers, audio, copy, scaling "
             f"({time.monotonic() - t_start:.1f} s)")
-        run_containers(tmp, frames, by_path)
+        av = run_containers(tmp, frames, by_path)
         check_resize(dev)
+        log(f"phase 3c: HEVC ({time.monotonic() - t_start:.1f} s)")
+        run_hevc(tmp, hframes, av["paths"]["mp4-aac"], frames, av, by_path,
+                 decodes)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")
@@ -1622,6 +1950,8 @@ def main(argv: list[str]) -> int:
     # IDR + 1 P: the chunked quarter-pel P path
     check_devices("p7-bf0", qframes[:2], P7_ARGS)
     check_pyramid_pstep(qframes)
+    for preset in ("h265-nvenc", "h265-cpu"):
+        check_devices_hevc(preset, hframes[:3], BUILTIN_PRESETS[preset])
     log("phase 5: device time of one GOP on cuda (torch.profiler; "
         f"{time.monotonic() - t_start:.1f} s)")
     profile_gop("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
@@ -1630,6 +1960,8 @@ def main(argv: list[str]) -> int:
     profile_gop("h264-cpu-exhaustive", bq[:4],
                 BUILTIN_PRESETS["h264-cpu"], cpu_ops=False,
                 env={"VCP_HIER_ME": "0"})
+    profile_hevc("h265-cpu", hframes[:3], BUILTIN_PRESETS["h265-cpu"])
+    finish_decodes(decodes)
 
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]

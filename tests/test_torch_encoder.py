@@ -77,7 +77,8 @@ def test_no_jax_or_vcp_tpu_imports():
     """Importing every module of the port, and chip_smoke.py, pulls in
     neither jax nor vcp_tpu; neither does a host decode of an H.264
     stream (the decoder, its native parser and reconstruction, the host
-    deblock), an AAC encode or a resize."""
+    deblock), an AAC encode, a resize, an HEVC encode of IDR + P (row
+    and RD intra), its validation decode or a foreign HEVC decode."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import vcp_tpu_torch\n"
@@ -93,11 +94,37 @@ def test_no_jax_or_vcp_tpu_imports():
         "from vcp_tpu_torch.ops.scale import bilinear_resize\n"
         "assert len(AacEncoder().encode(numpy.zeros(2048))) == 2\n"
         "assert bilinear_resize(torch.zeros(8, 8), 4, 4).shape == (4, 4)\n"
+        "from vcp_tpu_torch.codec.h265 import encoder, decoder, foreign\n"
+        "from vcp_tpu_torch.codec.mp4 import split_annexb\n"
+        "f = [(numpy.full((32, 64), 9 * k, numpy.uint8),"
+        " numpy.full((16, 32), 128, numpy.uint8),"
+        " numpy.full((16, 32), 128, numpy.uint8)) for k in range(3)]\n"
+        "for eff, g in ((4, 30), (5, 1)):\n"
+        "    c = encoder.HevcEncoderConfig(64, 32, effort=eff, gop_size=g)\n"
+        "    v, s, p, out = encoder.encode_stream(f, c, device='cpu')\n"
+        "    es = b''.join(b'\\0\\0\\0\\1' + n for n in (v, s, p))"
+        " + b''.join(a for a, _ in out)\n"
+        "    assert len(list(decoder.decode_annexb(es))) == 3\n"
+        "fd = foreign.ForeignHevcDecoder()\n"
+        "assert sum(fd.decode_nal(n) is not None"
+        " for n in split_annexb(es)) == 3\n"
         "need = ['vcp_tpu_torch.codec.ingest',"
         " 'vcp_tpu_torch.codec.h264.decoder',"
         " 'vcp_tpu_torch.codec.h264.native_parse',"
         " 'vcp_tpu_torch.codec.h264.native_recon',"
-        " 'vcp_tpu_torch.ops.deblock_host']\n"
+        " 'vcp_tpu_torch.ops.deblock_host',"
+        " 'vcp_tpu_torch.codec.cabac',"
+        " 'vcp_tpu_torch.codec.h265.ctx',"
+        " 'vcp_tpu_torch.codec.h265.residual',"
+        " 'vcp_tpu_torch.codec.h265.syntax',"
+        " 'vcp_tpu_torch.codec.h265.headers',"
+        " 'vcp_tpu_torch.codec.h265.frame_ops',"
+        " 'vcp_tpu_torch.codec.h265.intra_rd',"
+        " 'vcp_tpu_torch.codec.h265.encoder',"
+        " 'vcp_tpu_torch.codec.h265.decoder',"
+        " 'vcp_tpu_torch.codec.h265.foreign',"
+        " 'vcp_tpu_torch.ops.transform_hevc',"
+        " 'vcp_tpu_torch.ops.deblock_hevc']\n"
         "assert all(m in sys.modules for m in need)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'vcp_tpu'))\n"
@@ -132,7 +159,6 @@ def test_default_device_raises_without_cuda(monkeypatch, frames, tmp_path,
     ("h264-nvenc", {"VCP_CABAC": "0"}, "CAVLC"),
     ("h264-nvenc", {"VCP_BFRAMES": "2", "VCP_T8": "1"},
      "8x8 transform below effort 5.*A1c"),
-    ("h265-nvenc", {}, "HEVC"),
     (f"={QUALITY}", {"VCP_T8": "0"}, "VCP_T8=0.*A1c"),
     (f"={QUALITY}", {"VCP_RDI": "0"}, "without RD intra.*A1c"),
     (f"={QUALITY}", {"VCP_CABAC": "0"}, "CAVLC"),

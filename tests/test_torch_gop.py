@@ -54,7 +54,38 @@ def reference_tables():
         "ZIGZAG_8x8": jt8.ZIGZAG_8x8,
         "I8_TABS": np.stack([np.stack(j_decoder._I8_TABS[m])
                              for m in range(3, 9)]),
+        **_hevc_reference_tables(),
     }
+
+
+def _hevc_reference_tables():
+    """vcp_tpu's copies of the HEVC tables the port keeps (dicts and
+    functions flattened as ``state.hevc_tables`` does)."""
+    from vcp_tpu.codec import cabac
+    from vcp_tpu.codec.h265 import ctx, frame_ops, intra_rd
+    from vcp_tpu.codec.h265.foreign import ANGLE, INV_ANGLE
+    from vcp_tpu.ops import deblock_hevc
+    from vcp_tpu.ops import transform_hevc as jth
+    out = {f"trans_matrix({n})": jth.trans_matrix(n) for n in (4, 8, 16, 32)}
+    out.update({f"coeff_scan({k})": np.asarray(ctx.coeff_scan(k))
+                for k in (2, 3, 4, 5)})
+    out.update({
+        "QUANT_SCALE": jth.QUANT_SCALE, "LEVEL_SCALE": jth.LEVEL_SCALE,
+        "_CHROMA_QP_MAP": jth._CHROMA_QP_MAP,
+        "BETA_TABLE": deblock_hevc.BETA_TABLE,
+        "TC_TABLE": deblock_hevc.TC_TABLE,
+        "RANGE_TAB_LPS": np.asarray(cabac.RANGE_TAB_LPS),
+        "TRANS_IDX_LPS": np.asarray(cabac.TRANS_IDX_LPS),
+        "CTX_SETS": np.asarray(list(ctx.CTX_SETS.values())),
+        "INIT_VALUES": np.concatenate(
+            [np.asarray(ctx.INIT_VALUES[k]) for k in ctx.CTX_SETS], axis=1),
+        "ANGLE": np.asarray([ANGLE.get(m, 0) for m in range(35)]),
+        "INV_ANGLE": np.asarray(sorted(INV_ANGLE.items())),
+        "MODESET": np.asarray(intra_rd.MODESET),
+        "ANG_MODES": np.asarray(frame_ops.ANG_MODES),
+        "ANG_ANGLE": np.asarray(frame_ops.ANG_ANGLE),
+    })
+    return out
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,8 @@
 host decoder frame by frame on libx264 streams and on the port's own
 MP4s, the demuxer's sample tables, MP4 -> MP4 transcodes through both
 executors (with an AAC track too), garbage in the other containers, and
-HEVC input, which is not ported yet, tolerance 0."""
+HEVC in MP4 (intra pictures decode, inter ones fail alike), tolerance
+0."""
 
 import dataclasses
 import glob
@@ -222,18 +223,36 @@ def test_other_containers_raise(ext, tmp_path):
     assert errors[0] == errors[1] and errors[0].startswith("IngestError: ")
 
 
-def test_hevc_mp4_raises(port_mp4s, tmp_path):
-    """An MP4 whose video sample entry is hvc1 raises naming A9."""
-    with open(port_mp4s["h264-nvenc"][0], "rb") as fh:
-        buf = fh.read()
-    at = buf.index(b"stsd")            # the sample entry, not the brand
+@pytest.mark.parametrize("gop", [1, 0])
+def test_hevc_mp4_ingest(gop, tmp_path):
+    """HEVC in MP4 (an hvc1 file of the port's): intra-only (``-g 1``) it
+    decodes in both packages to the same frames (ForeignHevcDecoder);
+    with P frames both executors fail with the same EncodeError naming
+    the inter slice."""
+    from vcp_tpu.codec.y4m import write_y4m as j_write_y4m
+    from video_util import synth_video
+    src = str(tmp_path / "in.y4m")
+    j_write_y4m(src, synth_video(96, 64, 3), fps_num=30)
     path = str(tmp_path / "hevc.mp4")
-    with open(path, "wb") as fh:
-        fh.write(buf[:at] + buf[at:].replace(b"avc1", b"hvc1", 1))
+    args = "-c:v hevc_nvenc -preset p4 -b:v 8M" + (f" -g {gop}" if gop
+                                                   else "")
+    assert t_cli.main(["encode", src, path, f"--ffmpeg-args={args}",
+                       "--device", "cpu"]) == 0
     assert t_mp4.Mp4Demuxer(path).video.codec == "hvc1"
-    with pytest.raises(NotImplementedError, match="HEVC.*A9"):
-        t_executor.execute(path, str(tmp_path / "o.mp4"), NVENC,
-                           device="cpu")
+    if gop == 1:
+        got = list(t_ingest.open_video(path).frames)
+        _assert_frames_equal(got, list(j_ingest.open_video(path).frames))
+        assert len(got) == 3
+        return
+    errors = []
+    for execute, error, kw in (
+            (j_executor.execute, j_executor.EncodeError, {}),
+            (t_executor.execute, t_executor.EncodeError, {"device": "cpu"})):
+        with pytest.raises(error) as info:
+            execute(path, str(tmp_path / "o.mp4"), NVENC, **kw)
+        errors.append(str(info.value))
+    assert errors[0] == errors[1] == ("IngestError: hevc: foreign HEVC "
+                                      "inter slices unsupported")
 
 
 def test_unknown_container_is_an_encode_error(tmp_path):

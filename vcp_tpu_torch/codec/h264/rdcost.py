@@ -46,18 +46,21 @@ def lam2_for_qp(qp: int) -> float:
     return float(np.float32(0.9) * p)
 
 
-def _bits_table() -> np.ndarray:
-    a = np.arange(MAX_LEVEL + 1, dtype=np.float64)
+def _bits_table(max_level: int = MAX_LEVEL) -> np.ndarray:
+    a = np.arange(max_level + 1, dtype=np.float64)
     lg = np.log2(a + 1.0).astype(np.float32)
     tab = np.float32(2.0) * lg + np.float32(1.7)
     tab[0] = 0.0
     return tab.astype(np.float32)
 
 
-def level_bits(levels: torch.Tensor, dims) -> torch.Tensor:
+def level_bits(levels: torch.Tensor, dims,
+               max_level: int = MAX_LEVEL) -> torch.Tensor:
     """Bit proxy of ``levels``, 2*log2(|z|+1)+1.7 per nonzero level,
-    summed over ``dims`` (float32, exact)."""
-    tab = constant("level_bits", _bits_table(), levels.device, torch.float32)
+    summed over ``dims`` (float32, exact); ``max_level`` bounds |z|
+    (H.264's quantizers clamp at ``MAX_LEVEL``, HEVC's at 32767)."""
+    tab = constant(f"level_bits{max_level}", _bits_table(max_level),
+                   levels.device, torch.float32)
     return tab[levels.abs().long()].sum(dim=dims, dtype=torch.float64) \
         .to(torch.float32)
 

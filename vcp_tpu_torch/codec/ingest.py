@@ -1,15 +1,16 @@
-"""Input ingestion: raw Y4M, or H.264 in MP4, Matroska / WebM or AVI
--> YUV 4:2:0 frames.
+"""Input ingestion: raw Y4M, H.264 or HEVC in MP4, or H.264 in Matroska
+/ WebM or AVI -> YUV 4:2:0 frames.
 
-Copy of ``vcp_tpu/codec/ingest.py`` but its HEVC branch. Containers are
+Copy of ``vcp_tpu/codec/ingest.py``. Containers are
 demuxed by ``codec.mp4.Mp4Demuxer``, ``codec.mkv.MkvDemuxer`` and
 ``codec.avi.AviDemuxer`` and decoded on the host by
 ``codec.h264.decoder.H264Decoder``, which covers streams up to libx264's
 default output (High profile, CABAC, multi-ref, partitions, weighted
 prediction, B-pyramid). Matroska blocks are decoded in block-timestamp
-order, as in ``vcp_tpu``. HEVC in MP4 is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item (A9). An input outside
-what ``vcp_tpu`` reads raises :class:`IngestError`, as there.
+order, as in ``vcp_tpu``. HEVC in MP4 is decoded on the host by
+``codec.h265.foreign.ForeignHevcDecoder`` (intra pictures only, as in
+``vcp_tpu``). An input outside what ``vcp_tpu`` reads raises
+:class:`IngestError`, as there.
 """
 
 from __future__ import annotations
@@ -68,8 +69,7 @@ def _open_mp4(path: str) -> VideoInput:
     if track is None:
         raise IngestError("no video track in input")
     if track.codec in ("hvc1", "hev1"):
-        raise NotImplementedError("HEVC input is not ported yet (ROADMAP "
-                                  "A9)")
+        return _open_mp4_hevc(demux, track)
     if track.codec != "avc1":
         raise IngestError(f"unsupported input codec {track.codec!r} "
                           "(h264/avc1 or hevc/hvc1 only)")
@@ -95,6 +95,36 @@ def _open_mp4(path: str) -> VideoInput:
             yield f.y, f.u, f.v
 
     return VideoInput(track.width, track.height, fps_num, fps_den, n, gen())
+
+
+def _open_mp4_hevc(demux, track) -> VideoInput:
+    """HEVC in MP4 through the foreign HEVC decoder (libx265
+    medium-defaults intra surface on the host); an inter picture fails
+    with ``IngestError("hevc: ...")``, as in ``vcp_tpu``."""
+    from .h265.foreign import ForeignHevcDecoder, ForeignHevcError
+
+    n = track.sample_count
+    if track.sample_durations:
+        avg = max(1, sum(track.sample_durations[:n]) // max(1, n))
+        fps_num, fps_den = track.timescale, avg
+    else:
+        fps_num, fps_den = 30, 1
+
+    def gen():
+        dec = ForeignHevcDecoder()
+        try:
+            for nal in track.vps + track.sps + track.pps:
+                dec.decode_nal(nal)
+            for i in range(n):
+                for nal in demux.sample_nals(track, i):
+                    out = dec.decode_nal(nal)
+                    if out is not None:
+                        yield out
+        except ForeignHevcError as e:
+            raise IngestError(f"hevc: {e}") from e
+
+    return VideoInput(track.width, track.height, fps_num, fps_den, n,
+                      gen())
 
 
 def _open_avi(path: str) -> VideoInput:

@@ -1,10 +1,11 @@
-"""MP4 (ISO BMFF) muxing of an H.264 video track and an AAC-LC audio
-track, and demuxing.
+"""MP4 (ISO BMFF) muxing of an H.264 or HEVC video track and an AAC-LC
+audio track, and demuxing.
 
 Copy of the writer half of ``vcp_tpu/codec/mp4.py``: :class:`Mp4Writer`
 writes moov before mdat for ``-movflags +faststart``, one chunk per track,
-with length-prefixed NAL samples, an avcC sample entry and, for streams
-with B pictures, a ctts box of composition-time offsets; an
+with length-prefixed NAL samples, an avcC (``avc1``) or hvcC (``hvc1``)
+sample entry and, for streams with B pictures, a ctts box of
+composition-time offsets; an
 :class:`AudioTrack` gets an mp4a sample entry with its esds descriptor
 (AudioSpecificConfig, average bitrate), an smhd header and unit volume.
 ``iter_boxes`` / ``find_box`` walk a file's box tree. And a copy of its
@@ -127,12 +128,13 @@ class Sample:
 
 @dataclasses.dataclass
 class VideoTrack:
-    codec: str               # "h264"
+    codec: str               # "h264" | "h265"
     width: int
     height: int
     timescale: int           # e.g. 90000 or fps*1000
     sps: list[bytes] = dataclasses.field(default_factory=list)
     pps: list[bytes] = dataclasses.field(default_factory=list)
+    vps: list[bytes] = dataclasses.field(default_factory=list)  # h265
     samples: list[Sample] = dataclasses.field(default_factory=list)
 
 
@@ -182,8 +184,38 @@ def _esds_box(tr: AudioTrack) -> bytes:
     return full_box(b"esds", 0, 0, es)
 
 
+def _hvcc_box(tr: VideoTrack) -> bytes:
+    """Minimal hvcC: general fields lifted from the SPS by the caller are
+    not re-parsed here; conservative defaults are used."""
+    cfg = io.BytesIO()
+    cfg.write(bytes([
+        1,                  # configurationVersion
+        0x01,               # profile_space/tier/profile_idc (Main)
+        0x60, 0x00, 0x00, 0x00,  # profile_compatibility_flags
+        0x90, 0x00, 0x00, 0x00, 0x00, 0x00,  # constraint flags
+        0x5D,               # level_idc (93 = L3.1)
+        0xF0, 0x00,         # min_spatial_segmentation
+        0xFC,               # parallelismType
+        0xFD,               # chromaFormat 4:2:0
+        0xF8,               # bitDepthLuma - 8
+        0xF8,               # bitDepthChroma - 8
+        0x00, 0x00,         # avgFrameRate
+        0x0F,               # constantFrameRate/numTemporalLayers/lengthSize=4
+    ]))
+    arrays = [(32, tr.vps), (33, tr.sps), (34, tr.pps)]
+    arrays = [(t, lst) for t, lst in arrays if lst]
+    cfg.write(struct.pack(">B", len(arrays)))
+    for nal_type, lst in arrays:
+        cfg.write(struct.pack(">BH", 0x80 | nal_type, len(lst)))
+        for nal in lst:
+            cfg.write(struct.pack(">H", len(nal)) + nal)
+    return box(b"hvcC", cfg.getvalue())
+
+
 def _sample_entry(tr) -> bytes:
     if isinstance(tr, VideoTrack):
+        fourcc = b"avc1" if tr.codec == "h264" else b"hvc1"
+        cfg = _avcc_box(tr) if tr.codec == "h264" else _hvcc_box(tr)
         body = (b"\x00" * 6 + struct.pack(">H", 1)      # reserved + dref idx
                 + b"\x00" * 16
                 + struct.pack(">HH", tr.width, tr.height)
@@ -192,7 +224,7 @@ def _sample_entry(tr) -> bytes:
                 + struct.pack(">H", 1)                   # frame count
                 + b"\x00" * 32                           # compressor name
                 + struct.pack(">Hh", 0x18, -1))          # depth, color table
-        return box(b"avc1", body + _avcc_box(tr))
+        return box(fourcc, body + cfg)
     body = (b"\x00" * 6 + struct.pack(">H", 1)
             + b"\x00" * 8
             + struct.pack(">HH", tr.channels, 16)

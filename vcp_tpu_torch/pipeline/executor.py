@@ -5,7 +5,10 @@ the matching engine. Port of ``vcp_tpu/pipeline/executor.py``:
   (``codec.copy``);
 * ``-vn -c:a aac`` -> an audio-only MP4 (``codec.audio``);
 * ``-c:v h264_*``  -> the H.264 encoder on ``device``;
-* ``-c:v hevc_*``  -> ``NotImplementedError`` naming its ROADMAP item.
+* ``-c:v hevc_*``  -> the HEVC encoder on ``device``.
+
+A setting not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item.
 
 Every other failure becomes :class:`EncodeError`, chained to its cause,
 as in vcp_tpu (a consumer acks and drops the task); a ``CopyError``
@@ -57,5 +60,7 @@ def _dispatch(input_path: str, output_path: str, params: EncodeParams,
         return h264.encode_file(input_path, output_path, params, deadline,
                                 device=device)
     if params.video_codec == "h265":
-        raise NotImplementedError("HEVC is not ported yet (ROADMAP A9)")
+        from ..codec.h265 import encoder as h265
+        return h265.encode_file(input_path, output_path, params, deadline,
+                                device=device)
     raise EncodeError(f"no engine for video codec {params.video_codec!r}")
