@@ -60,6 +60,18 @@ child process beside the later phases; quarter-phase vectors, the RD
 paths' left-dependent intra modes and the host seconds of the CABAC
 slice writer are logged and checked.
 
+Phase 3d runs the control plane, the farm on one card: the port's
+``redis-serve`` and two ``producer`` processes (``-p h264-nvenc`` and
+``-p copy``, one shared and one output dir) feed a ``Consumer`` in this
+process (two workers, ``device="cuda"``) over the Redis Stream, with
+the launch counts set to 0 just before the consumer starts and read
+when its tasks are done. The two transcodes (phase 3's Y4M and phase
+3b's MP4 + AAC, at once) must equal their direct encodes NAL unit for
+NAL unit and launch kernels 1, 3 and 4; the copy equals its source; a
+VP9 WebM is refused at publish; a task without input is acked and
+dropped; the queue, the shared dir and the history end as the reference
+semantics say, and ``stats`` and ``clean --all`` print and clean them.
+
 It checks each MP4 (with the composition offsets of B streams), checks
 that the quality paths used the tools they add (quarter-pel vectors on
 the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
@@ -75,8 +87,10 @@ beside their bounds. Any failed phase raises, so the exit code is
 nonzero; without a CUDA device it exits 2 and prints no result.
 ``--kernels-only`` stops after the kernel checks (a short first run
 after a kernel change), ``--hevc-only`` runs the HEVC phases alone (the
-hq path from 12 frames); neither prints a result line. Imports nothing
-of JAX or of ``vcp_tpu``.
+hq path from 12 frames); neither prints a result line.
+``--control-only`` runs phase 3d alone on a fresh 40-frame Y4M and its
+own MP4 + AAC and ends with the same last line. Imports nothing of JAX
+or of ``vcp_tpu``.
 """
 
 from __future__ import annotations
@@ -117,6 +131,7 @@ PSNR_FLOOR_DB = 35.0         # recon luma PSNR floor of the first GOP
 # than this rate).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+WALL_S: dict[str, float] = {}  # wall of each main path's CLI encode
 
 
 @contextlib.contextmanager
@@ -993,6 +1008,7 @@ def run_main_path(label: str, frames, tmp: str, cli_args: list[str],
                     for k, (fn, attr) in counters.items()}
     if rc != 0:
         raise RuntimeError(f"cli encode exited {rc}")
+    WALL_S[label] = wall
     stages = {k: round(sum(e.stage_s[k] for e in seen["encoders"]), 3)
               for k in seen["encoders"][0].stage_s}
     log(f"  {label}: {len(frames)} frames {frames[0][0].shape} in "
@@ -1561,6 +1577,311 @@ def run_hevc(tmp: str, hframes, hq_src: str, hq_frames, av: dict,
 
 
 # ---------------------------------------------------------------------------
+# Phase 3d: the control plane
+# ---------------------------------------------------------------------------
+
+CONTROL_WAIT_S = 300         # until 3 tasks succeed and 1 fails
+CONTROL_FILE_WAIT_S = 3      # consumer.file_wait_timeout of the phase
+CONTROL_DRAIN_S = 5.0        # consumer.stop()'s drain
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _cli_proc(args: list[str], log_path: str) -> subprocess.Popen:
+    """``python -m vcp_tpu_torch.cli ARGS`` from the checkout, its output
+    to ``log_path``."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with open(log_path, "w") as fh:
+        return subprocess.Popen([sys.executable, "-m", "vcp_tpu_torch.cli",
+                                 *args], cwd=ROOT, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT)
+
+
+def _wait_for(what: str, pred, timeout: float, procs=()) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        for p, log_path in procs:
+            if p.poll() is not None:
+                raise RuntimeError(f"{what}: process exited {p.returncode}:"
+                                   f"\n{open(log_path).read()[-4000:]}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what}: not within {timeout:.0f} s")
+        time.sleep(0.1)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_vp9_webm(path: str) -> None:
+    """A WebM whose one video track is VP9: the producer must refuse it."""
+    from vcp_tpu_torch.codec import mkv
+    entry = (_ebml_uint(mkv.TRACK_NUMBER, 1) + _ebml_uint(mkv.TRACK_TYPE, 1)
+             + _ebml(mkv.CODEC_ID, b"V_VP9")
+             + _ebml(mkv.VIDEO, _ebml_uint(mkv.PIXEL_WIDTH, W)
+                     + _ebml_uint(mkv.PIXEL_HEIGHT, H)))
+    info = _ebml(mkv.INFO, _ebml_uint(mkv.TIMESTAMP_SCALE, 1_000_000))
+    with open(path, "wb") as fh:
+        fh.write(_ebml(mkv.EBML_HEADER, b"") + _ebml(mkv.SEGMENT, info + _ebml(
+            mkv.TRACKS, _ebml(mkv.TRACK_ENTRY, entry))))
+
+
+class _Tee:
+    """The port's log sink for the phase: stderr, and the lines kept."""
+
+    def __init__(self):
+        self.lines: list[str] = []
+
+    def write(self, s: str) -> None:
+        self.lines.append(s)
+        sys.stderr.write(s)
+
+    def flush(self) -> None:
+        sys.stderr.flush()
+
+
+def run_control_plane(tmp: str, av: dict, by_path: dict) -> None:
+    """Phase 3d: the farm on one card. The port's ``redis-serve``, two
+    ``producer`` processes (watch dir A with ``-p h264-nvenc``, watch dir
+    B with ``-p copy``; one shared and one output dir) and a ``Consumer``
+    in this process (``concurrency=2``, ``device="cuda"``, as ``cli
+    consumer`` runs it), with the launch counts set to 0 just before it
+    starts and read once its tasks are done. Into A go phase 3's 40-frame
+    1080p Y4M, phase 3b's MP4 + AAC and a VP9 WebM (refused at publish);
+    into B the same MP4; one task with no input is published directly.
+    The transcodes must equal phase 3 / 3b's direct encodes NAL unit for
+    NAL unit, the copy its source byte for byte; the queue, the shared
+    dir and, after ``clean --all``, the stream and the history are
+    empty."""
+    import filecmp
+    import io
+    import shutil
+    import signal
+    from vcp_tpu_torch import cli
+    from vcp_tpu_torch import logging as vlog
+    from vcp_tpu_torch.codec import mp4
+    from vcp_tpu_torch.config import BUILTIN_PRESETS, load_config
+    from vcp_tpu_torch.pipeline.consumer import Consumer
+    from vcp_tpu_torch.queue.history import HistoryManager
+    from vcp_tpu_torch.queue.stream import Stream, Task
+    t_phase = time.monotonic()
+    root = os.path.join(tmp, "farm")
+    dirs = {k: os.path.join(root, k) for k in ("a", "b", "shared", "out",
+                                               "stage", "logs")}
+    for d in dirs.values():
+        os.makedirs(d)
+    addr = f"127.0.0.1:{_free_port()}"
+    cfg_path = os.path.join(root, "farm.yaml")
+    with open(cfg_path, "w") as fh:
+        fh.write(f'redis:\n  address: "{addr}"\n'
+                 "producer:\n  verify_output: true\n"
+                 "consumer:\n  name: chip\n  concurrency: 2\n"
+                 f"  file_wait_timeout: {CONTROL_FILE_WAIT_S}\n"
+                 "  verify_output: true\n")
+    procs: list = []
+    tee = _Tee()
+    consumer = None
+    try:
+        log_path = os.path.join(dirs["logs"], "redis.log")
+        procs.append((_cli_proc(["redis-serve", "--port",
+                                 addr.rsplit(":", 1)[1]], log_path),
+                      log_path))
+        probe = Stream(addr)
+        _wait_for("redis-serve", probe.ping, 60, procs)
+        for name, watch, preset in (("producer-a", dirs["a"], "h264-nvenc"),
+                                    ("producer-b", dirs["b"], "copy")):
+            log_path = os.path.join(dirs["logs"], f"{name}.log")
+            procs.append((_cli_proc(
+                ["producer", "-c", cfg_path, "-w", watch, "-s",
+                 dirs["shared"], "-o", dirs["out"], "-p", preset],
+                log_path), log_path))
+        _wait_for("producers", lambda: all(
+            "producer starting" in open(lp).read()
+            for _, lp in procs[1:]), 60, procs)
+
+        cfg = load_config(cfg_path)
+        counters = launch_counters()
+        vlog.set_sink(tee)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        consumer = Consumer(cfg, name="chip", concurrency=2, device=DEVICE)
+        consumer.start()
+
+        def drop(name, watch, src):
+            staged = os.path.join(dirs["stage"], name)
+            if src is None:
+                write_vp9_webm(staged)
+            else:
+                shutil.copyfile(src, staged)
+            os.rename(staged, os.path.join(watch, name))
+
+        # the two transcodes first, so that they take the two workers
+        # together; then the copy and the WebM; the task with no input
+        # last, so that its file wait holds no worker a transcode needs
+        drop("nvenc.y4m", dirs["a"], os.path.join(tmp, "h264-nvenc.y4m"))
+        drop("aac.mp4", dirs["a"], av["paths"]["mp4-aac"])
+        _wait_for("both transcodes taken",
+                  lambda: consumer.counters.processed >= 2, 60, procs)
+        drop("aac-copy.mp4", dirs["b"], av["paths"]["mp4-aac"])
+        drop("vp9.webm", dirs["a"], None)
+        _wait_for("the copy taken",
+                  lambda: consumer.counters.processed >= 3, CONTROL_WAIT_S,
+                  procs)
+        probe.publish(Task(
+            id="no-input", input_path=os.path.join(dirs["shared"],
+                                                   "missing.y4m"),
+            original_name="missing.y4m", output_dir=dirs["out"],
+            output_name="missing.mp4",
+            ffmpeg_args=BUILTIN_PRESETS["h264-nvenc"], verify_output=True))
+        _wait_for("3 succeeded, 1 failed", lambda: (
+            consumer.counters.succeeded + consumer.counters.failed >= 4),
+            CONTROL_WAIT_S, procs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in
+                    counters.items()}
+        by_path["stream"] = launches
+        snap = consumer.counters.snapshot()
+        t_stop = time.monotonic()
+        consumer.stop(drain_timeout=CONTROL_DRAIN_S)
+        stop_s = time.monotonic() - t_stop
+        alive = [t.name for t in consumer._threads if t.is_alive()]
+        consumer = None
+        vlog.set_sink(sys.stderr)
+        log(f"  stream: 4 tasks in {wall:.3f} s, counters {snap}, launches "
+            f"{launches}; consumer.stop() {stop_s:.3f} s (drain "
+            f"{CONTROL_DRAIN_S} s)")
+        if snap != {"processed": 4, "succeeded": 3, "failed": 1}:
+            raise AssertionError(f"stream: consumer counters {snap}")
+        if alive or stop_s > CONTROL_DRAIN_S + 1.0:
+            raise AssertionError(f"stream: stop() {stop_s:.3f} s, threads "
+                                 f"alive {alive}")
+        missing = [k for k in ("motion_search", "deblock_fast",
+                               "deblock_general") if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched from the consumer: "
+                                 f"{missing}")
+
+        out = {k: os.path.join(dirs["out"], f"{k}.mp4")
+               for k in ("nvenc", "aac", "aac-copy")}
+        for label, direct in (("nvenc", "h264-nvenc.mp4"),
+                              ("aac", "mp4-aac.mp4")):
+            if video_samples(out[label]) != video_samples(
+                    os.path.join(tmp, direct)):
+                raise AssertionError(f"stream: {label}.mp4's video NAL "
+                                     f"units differ from {direct}'s")
+        check_audio("stream-aac", out["aac"], av, passes=2, same_aus=False)
+        d, ref = mp4.Mp4Demuxer(out["aac"]), mp4.Mp4Demuxer(
+            os.path.join(tmp, "mp4-aac.mp4"))
+        if [d.sample(d.audio, i) for i in range(d.audio.sample_count)] != [
+                ref.sample(ref.audio, i)
+                for i in range(ref.audio.sample_count)]:
+            raise AssertionError("stream: aac.mp4's AAC frames differ from "
+                                 "mp4-aac.mp4's")
+        if not filecmp.cmp(out["aac-copy"], av["paths"]["mp4-aac"],
+                           shallow=False):
+            raise AssertionError("stream: the copy differs from its source")
+        for path in out.values():
+            ok, reason = mp4.verify_video_file(path)
+            if not ok:
+                raise AssertionError(f"stream: verify {path}: {reason}")
+        log("  stream: nvenc / aac video NAL units == the direct encodes', "
+            "aac's AAC frames == mp4-aac's, aac-copy == its source "
+            "(filecmp), verify_video_file passes on all three")
+        leftover = {k: sorted(os.listdir(dirs[k])) for k in ("shared", "a",
+                                                             "b")}
+        if leftover != {"shared": [], "a": ["vp9.webm"], "b": []}:
+            raise AssertionError(f"stream: files left {leftover}")
+        info = probe.get_queue_info()
+        if (info.length, info.pending) != (0, 0):
+            raise AssertionError(f"stream: queue {info}")
+        recs = HistoryManager(probe.client).get_all_history()
+        status = sorted((r.original_name, r.status, r.consumer)
+                        for r in recs)
+        want = sorted([("nvenc.y4m", "completed", "chip"),
+                       ("aac.mp4", "completed", "chip"),
+                       ("aac-copy.mp4", "completed", "chip"),
+                       ("missing.y4m", "failed", "chip")])
+        if status != want:
+            raise AssertionError(f"stream: history {status}")
+        encode_s = {}
+        for line in tee.lines:
+            if "task success" in line:
+                fields = dict(f.split("=", 1) for f in line.split()
+                              if "=" in f)
+                encode_s[fields["task"]] = float(fields["encode"][:-1])
+        for r in sorted(recs, key=lambda r: r.start_time):
+            log(f"  stream: {r.original_name}: {r.status}, dispatch "
+                f"{r.dispatch_sec * 1000:.1f} ms, task {r.duration_sec:.3f} "
+                f"s (file wait, encode, verify), encode "
+                f"{encode_s.get(r.task_id, float('nan')):.3f} s"
+                + (f", error {r.error!r}" if r.error else ""))
+        by_name = {r.original_name: r for r in recs}
+        spans = [(by_name[n].start_time, by_name[n].end_time)
+                 for n in ("nvenc.y4m", "aac.mp4")]
+        overlap = min(e for _, e in spans) - max(s for s, _ in spans)
+        for name, serial in (("nvenc.y4m", "h264-nvenc"),
+                             ("aac.mp4", "mp4-aac")):
+            enc = encode_s[by_name[name].task_id]
+            log(f"  stream: {name}: {N_FRAMES / enc:.2f} fps beside the "
+                f"other transcode (overlap {overlap:.3f} s), serial "
+                f"{N_FRAMES / WALL_S[serial]:.2f} fps ({serial}, "
+                f"{WALL_S[serial]:.3f} s)")
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["stats", "-c", cfg_path])
+        text = buf.getvalue()
+        if rc != 0 or "completed : 3" not in text \
+                or "failed    : 1" not in text \
+                or "stream length : 0" not in text:
+            raise AssertionError(f"stream: stats exited {rc}:\n{text}")
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["clean", "--all", "-f", "-c", cfg_path])
+        keys = probe.client.execute("KEYS", "*")
+        if rc != 0 or keys:
+            raise AssertionError(f"stream: clean exited {rc}, keys left "
+                                 f"{keys}")
+        log("  stream: stats printed 3 completed / 1 failed; clean --all "
+            "left no key")
+        probe.close()
+        for p, log_path in procs[1:]:
+            p.send_signal(signal.SIGINT)
+        for p, log_path in procs[1:]:
+            rc = p.wait(timeout=30)
+            if rc != 0:
+                raise AssertionError(f"producer exited {rc} on SIGINT:\n"
+                                     f"{open(log_path).read()[-4000:]}")
+        logs = [open(lp).read() for _, lp in procs[1:]]
+        published = [text.count("task start") for text in logs]
+        refused = [text.count("rejected at publish") for text in logs]
+        if (published, refused) != ([2, 1], [1, 0]) \
+                or "V_VP9" not in logs[0]:
+            raise AssertionError(f"stream: producers published {published}, "
+                                 f"refused {refused}")
+        log(f"  stream: producers published {published}, refused the VP9 "
+            f"WebM at publish and exited 0 on SIGINT; phase wall "
+            f"{time.monotonic() - t_phase:.3f} s")
+    finally:
+        vlog.set_sink(sys.stderr)
+        if consumer is not None:
+            consumer.stop(drain_timeout=CONTROL_DRAIN_S)
+        for p, _ in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: cuda vs cpu on one GOP of each path
 # ---------------------------------------------------------------------------
 
@@ -1816,6 +2137,29 @@ def run_hevc_only(frames, hframes, t_start: float) -> int:
     return 0
 
 
+def run_control_only(card: str, t_start: float) -> int:
+    """``--control-only``: phase 3d alone, on a fresh 40-frame Y4M and its
+    own MP4 + AAC (the direct encodes it compares with run first)."""
+    frames = synth_frames(H, W, N_FRAMES, SCENE_CUT)
+    kernels = ("motion_search", "deblock_fast", "deblock_general")
+    by_path: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_main_path("h264-nvenc", frames, tmp, ["-p", "h264-nvenc"],
+                      [0, SCENE_CUT], kernels)
+        av = make_av_inputs(tmp, os.path.join(tmp, "h264-nvenc.mp4"))
+        run_main_path("mp4-aac", frames, tmp, ["-p", "h264-nvenc"],
+                      [0, SCENE_CUT], kernels, src=av["paths"]["mp4-aac"])
+        log(f"phase 3d: control plane ({time.monotonic() - t_start:.1f} s)")
+        run_control_plane(tmp, av, by_path)
+    log(f"control phase done at {time.monotonic() - t_start:.1f} s; "
+        f"launches {by_path}")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1846,6 +2190,8 @@ def main(argv: list[str]) -> int:
         return run_hevc_only(synth_frames(H, W, 12, 12),
                              synth_frames_subpel(H, W, HEVC_FRAMES,
                                                  HEVC_CUT), t_start)
+    if "--control-only" in argv:
+        return run_control_only(card, t_start)
 
     log("phase 2: kernels vs plain versions at 1088x1920")
     rows = [*check_motion(dev, HP, W, reps=20),
@@ -1933,6 +2279,9 @@ def main(argv: list[str]) -> int:
         log(f"phase 3c: HEVC ({time.monotonic() - t_start:.1f} s)")
         run_hevc(tmp, hframes, av["paths"]["mp4-aac"], frames, av, by_path,
                  decodes)
+        log("phase 3d: control plane, redis-serve + 2 producers + a "
+            f"consumer on cuda ({time.monotonic() - t_start:.1f} s)")
+        run_control_plane(tmp, av, by_path)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")

@@ -78,7 +78,8 @@ def test_no_jax_or_vcp_tpu_imports():
     neither jax nor vcp_tpu; neither does a host decode of an H.264
     stream (the decoder, its native parser and reconstruction, the host
     deblock), an AAC encode, a resize, an HEVC encode of IDR + P (row
-    and RD intra), its validation decode or a foreign HEVC decode."""
+    and RD intra), its validation decode, a foreign HEVC decode or a copy
+    task from a producer through the port's mini-redis to a consumer."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import vcp_tpu_torch\n"
@@ -108,6 +109,42 @@ def test_no_jax_or_vcp_tpu_imports():
         "fd = foreign.ForeignHevcDecoder()\n"
         "assert sum(fd.decode_nal(n) is not None"
         " for n in split_annexb(es)) == 3\n"
+        "import os, struct, tempfile, time\n"
+        "from vcp_tpu_torch.codec import mp4\n"
+        "from vcp_tpu_torch.codec.h264 import headers as H\n"
+        "from vcp_tpu_torch.config import Config\n"
+        "from vcp_tpu_torch.pipeline.consumer import Consumer\n"
+        "from vcp_tpu_torch.pipeline.producer import Producer\n"
+        "from vcp_tpu_torch.queue.miniredis import MiniRedisServer\n"
+        "srv = MiniRedisServer(port=0); srv.start()\n"
+        "d = tempfile.mkdtemp(); cfg = Config()\n"
+        "cfg.redis.address = srv.address\n"
+        "cfg.producer.watch_directory = os.path.join(d, 'raw')\n"
+        "cfg.producer.shared_directory = os.path.join(d, 'shared')\n"
+        "cfg.producer.output_directory = os.path.join(d, 'out')\n"
+        "cfg.producer.ffmpeg_preset = 'copy'\n"
+        "tr = mp4.VideoTrack(codec='h264', width=64, height=48,"
+        " timescale=30000,"
+        " sps=[H.write_sps(H.SeqParams(width=64, height=48))[4:]],"
+        " pps=[H.write_pps(H.PicParams())[4:]])\n"
+        "nal = b'\\x65' + bytes(20)\n"
+        "tr.samples.append(mp4.Sample(data=struct.pack('>I', len(nal))"
+        " + nal, duration=1000, is_sync=True))\n"
+        "w = mp4.Mp4Writer(); w.add_track(tr)\n"
+        "src = os.path.join(d, 'in.mp4'); w.write(src)\n"
+        "data = open(src, 'rb').read()\n"
+        "prod = Producer(cfg, poll_interval=0.05, stability_checks=2,"
+        " stability_interval=0.02)\n"
+        "cons = Consumer(cfg, name='imports', device='cpu')\n"
+        "prod.start(); cons.start()\n"
+        "os.rename(src, os.path.join(cfg.producer.watch_directory,"
+        " 'in.mp4'))\n"
+        "t0 = time.monotonic()\n"
+        "while cons.counters.succeeded < 1 and time.monotonic() - t0 < 30:\n"
+        "    time.sleep(0.05)\n"
+        "cons.stop(); prod.stop(); srv.stop()\n"
+        "assert open(os.path.join(d, 'out', 'in.mp4'), 'rb').read()"
+        " == data\n"
         "need = ['vcp_tpu_torch.codec.ingest',"
         " 'vcp_tpu_torch.codec.h264.decoder',"
         " 'vcp_tpu_torch.codec.h264.native_parse',"
@@ -124,7 +161,9 @@ def test_no_jax_or_vcp_tpu_imports():
         " 'vcp_tpu_torch.codec.h265.decoder',"
         " 'vcp_tpu_torch.codec.h265.foreign',"
         " 'vcp_tpu_torch.ops.transform_hevc',"
-        " 'vcp_tpu_torch.ops.deblock_hevc']\n"
+        " 'vcp_tpu_torch.ops.deblock_hevc',"
+        " 'vcp_tpu_torch.queue.miniredis', 'vcp_tpu_torch.codec.probe',"
+        " 'vcp_tpu_torch.pipeline.watcher', 'vcp_tpu_torch.utils.fs']\n"
         "assert all(m in sys.modules for m in need)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'vcp_tpu'))\n"

@@ -27,7 +27,6 @@ or AVI on the host (``codec.ingest``), scales on the device for ``-s`` /
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import time
 
@@ -36,12 +35,13 @@ import torch
 
 from .. import mp4 as mp4mod
 from ...device import resolve_device
+from ...logging import new_logger
 from ...ops.scale import scale_yuv420
 from ...ops.transform import chroma_qp
 from ..args import EncodeParams
 from . import entropy, gop_ops, headers
 
-log = logging.getLogger("vcp_tpu_torch.h264")
+log = new_logger("h264")
 
 
 class EncodeAbort(RuntimeError):
@@ -633,12 +633,12 @@ def encode_file(input_path: str, output_path: str, params: EncodeParams,
         try:
             audio_track = audio_track_for(input_path, params)
         except Exception as e:
-            log.warning("audio passthrough failed: error=%s", e)
+            log.warn("audio passthrough failed", error=str(e))
     mux_mp4(output_path, sps, pps, samples, cfg.width, cfg.height,
             cfg.fps_num, cfg.fps_den, faststart=params.faststart,
             audio_track=audio_track)
     dt = time.monotonic() - t0
     size = os.path.getsize(output_path)
-    log.info("encode done: frames=%d qp=%d fps=%.1f size=%d", len(samples),
-             cfg.qp, len(samples) / max(dt, 1e-9), size)
+    log.info("encode done", frames=len(samples), qp=cfg.qp,
+             fps=f"{len(samples) / max(dt, 1e-9):.1f}", size=size)
     return size

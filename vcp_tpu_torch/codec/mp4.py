@@ -8,7 +8,10 @@ sample entry and, for streams with B pictures, a ctts box of
 composition-time offsets; an
 :class:`AudioTrack` gets an mp4a sample entry with its esds descriptor
 (AudioSpecificConfig, average bitrate), an smhd header and unit volume.
-``iter_boxes`` / ``find_box`` walk a file's box tree. And a copy of its
+``iter_boxes`` / ``find_box`` walk a file's box tree; ``probe`` /
+``probe_bytes`` read a file's tracks and ``verify_video_file`` is the
+consumer's output check (the avc1 SPS against the container's
+dimensions). And a copy of its
 demuxer, :class:`Mp4Demuxer`, which the ingest of MP4 inputs and the
 audio path read: every track's sample tables (stsc / stco / co64 / stsz /
 stts / stss), the avcC / hvcC parameter sets and the AAC
@@ -116,6 +119,98 @@ def _parse_trak(buf: bytes, ps: int, pe: int) -> TrackInfo:
         if stsz:
             t.sample_count, = struct.unpack_from(">I", buf, stsz[0] + 8)
     return t
+
+
+@dataclasses.dataclass
+class ProbeResult:
+    valid: bool = False
+    brand: str = ""
+    duration_sec: float = 0.0
+    tracks: list[TrackInfo] = dataclasses.field(default_factory=list)
+    faststart: bool = False   # moov precedes mdat
+
+    @property
+    def has_video(self) -> bool:
+        return any(t.handler == "vide" for t in self.tracks)
+
+    @property
+    def video(self) -> TrackInfo | None:
+        for t in self.tracks:
+            if t.handler == "vide":
+                return t
+        return None
+
+
+def probe_bytes(buf: bytes) -> ProbeResult:
+    r = ProbeResult()
+    moov_pos = mdat_pos = None
+    for btype, ps, pe in iter_boxes(buf):
+        if btype == b"ftyp":
+            r.brand = buf[ps:ps + 4].decode("latin1", "replace")
+        elif btype == b"moov":
+            moov_pos = ps
+            mvhd = find_box(buf, [b"mvhd"], ps, pe)
+            if mvhd:
+                v = buf[mvhd[0]]
+                if v == 1:
+                    ts, dur = struct.unpack_from(">IQ", buf, mvhd[0] + 20)
+                else:
+                    ts, dur = struct.unpack_from(">II", buf, mvhd[0] + 12)
+                if ts:
+                    r.duration_sec = dur / ts
+            for btype2, tps, tpe in iter_boxes(buf, ps, pe):
+                if btype2 == b"trak":
+                    r.tracks.append(_parse_trak(buf, tps, tpe))
+        elif btype == b"mdat":
+            mdat_pos = ps
+    r.valid = moov_pos is not None and bool(r.tracks)
+    if moov_pos is not None and mdat_pos is not None:
+        r.faststart = moov_pos < mdat_pos
+    return r
+
+
+def probe(path: str) -> ProbeResult:
+    with open(path, "rb") as fh:
+        return probe_bytes(fh.read())
+
+
+def verify_video_file(path: str) -> tuple[bool, str]:
+    """The consumer's output verification (in place of an ffprobe run):
+    the file is non-empty and holds a video stream; for an H.264 track
+    the codec config (avcC + SPS) must parse and agree with the container
+    dimensions, and the track must have samples. Returns (ok, reason)."""
+    import os
+    try:
+        if os.path.getsize(path) == 0:
+            return False, "output file is empty"
+    except OSError as e:
+        return False, f"stat failed: {e}"
+    try:
+        r = probe(path)
+    except Exception as e:  # malformed container
+        return False, f"probe failed: {e}"
+    if not r.valid:
+        return False, "no moov/tracks found"
+    if not r.has_video:
+        return False, "no video stream"
+    v = r.video
+    if v.codec == "avc1":
+        try:
+            demux = Mp4Demuxer(path)
+            t = demux.video
+            if not t.sps or not t.pps:
+                return False, "avc1 track missing SPS/PPS"
+            from .h264 import headers as _h
+            from ..utils.bitstream import emulation_remove
+            sp = _h.parse_sps(emulation_remove(t.sps[0][1:]))
+            if (sp.width, sp.height) != (t.width, t.height) and t.width:
+                return False, (f"SPS dims {sp.width}x{sp.height} != "
+                               f"container {t.width}x{t.height}")
+            if t.sample_count == 0:
+                return False, "video track has no samples"
+        except Exception as e:
+            return False, f"codec config invalid: {e}"
+    return True, ""
 
 
 @dataclasses.dataclass

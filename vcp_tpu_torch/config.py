@@ -1,10 +1,16 @@
-"""Preset table and encode-argument resolution.
+"""Config loading and the preset table.
 
-Copy of the parts of ``vcp_tpu/config.py`` that the one-shot ``encode``
-entry point uses: the builtin preset table (ffmpeg-style argument
-strings), custom presets and ffmpeg args from an optional YAML config,
-and the priority chain CLI --ffmpeg-args > CLI --preset > config
-ffmpeg_args > config ffmpeg_preset > default preset.
+Copy of ``vcp_tpu/config.py``: the YAML schema ``redis / producer /
+consumer / presets``, the builtin table of 7 presets, the defaults
+(redis at localhost:6379, concurrency 1, watch mode ``new``, preset
+``h264-nvenc``), custom presets overriding builtin ones, and the
+priority chain of the encode arguments: CLI --ffmpeg-args > CLI
+--preset > config ffmpeg_args > config ffmpeg_preset > default preset.
+The keys ``redis.stream_max_length``, ``redis.publish_rate_limit``,
+``consumer.ffmpeg_timeout``, ``consumer.file_wait_timeout`` and
+``consumer.verify_output`` are parsed and honored, as there. The
+consumer's device is not part of the schema: it is an argument of
+``Consumer`` and the CLI's ``--device``.
 """
 
 from __future__ import annotations
@@ -12,6 +18,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+try:
+    import yaml
+except ImportError:  # pragma: no cover - pyyaml is expected in the image
+    yaml = None
+
+# Builtin preset table. The argument strings keep ffmpeg's spelling so user
+# configs carry over unchanged; codec.args parses them into encoder
+# parameters.
 BUILTIN_PRESETS: dict[str, str] = {
     "h264-nvenc": "-c:v h264_nvenc -preset p4 -b:v 10M -c:a aac -b:a 128k -movflags +faststart",
     "h264-nvenc-hq": "-c:v h264_nvenc -preset p7 -tune hq -b:v 15M -maxrate 20M -bufsize 30M -c:a aac -b:a 192k -movflags +faststart",
@@ -26,10 +40,45 @@ DEFAULT_PRESET = "h264-nvenc"
 
 
 @dataclasses.dataclass
+class RedisConfig:
+    address: str = "localhost:6379"
+    password: str = ""
+    db: int = 0
+    stream_max_length: int = 1000
+    publish_rate_limit: int = 100   # tasks per second
+
+
+@dataclasses.dataclass
+class ProducerConfig:
+    watch_directory: str = ""
+    shared_directory: str = ""
+    output_directory: str = ""
+    output_prefix: str = ""
+    ffmpeg_preset: str = ""
+    ffmpeg_args: str = ""
+    verify_output: bool = True
+    watch_mode: str = "new"         # new | all
+    keep_local: bool = False
+
+
+@dataclasses.dataclass
+class ConsumerConfig:
+    name: str = ""
+    concurrency: int = 1
+    ffmpeg_timeout: float = 3600.0     # encode timeout, seconds
+    file_wait_timeout: float = 30.0    # shared-storage visibility wait
+    verify_output: bool = True
+
+
+@dataclasses.dataclass
 class Config:
-    ffmpeg_preset: str = DEFAULT_PRESET   # producer.ffmpeg_preset
-    ffmpeg_args: str = ""                 # producer.ffmpeg_args
+    redis: RedisConfig = dataclasses.field(default_factory=RedisConfig)
+    producer: ProducerConfig = dataclasses.field(default_factory=ProducerConfig)
+    consumer: ConsumerConfig = dataclasses.field(default_factory=ConsumerConfig)
     presets: dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def get_redis_addr(self) -> str:
+        return self.redis.address
 
     def get_preset(self, name: str) -> Optional[str]:
         """Custom preset overrides builtin."""
@@ -37,28 +86,83 @@ class Config:
             return self.presets[name]
         return BUILTIN_PRESETS.get(name)
 
+    def get_all_presets(self) -> dict[str, str]:
+        """Merged builtin + custom table."""
+        merged = dict(BUILTIN_PRESETS)
+        merged.update(self.presets)
+        return merged
+
+
+def _fill(dc, data: dict):
+    """Overlay YAML values onto a dataclass, coercing to the default's type."""
+    for f in dataclasses.fields(dc):
+        if not data or f.name not in data or data[f.name] is None:
+            continue
+        v = data[f.name]
+        cur = getattr(dc, f.name)
+        try:
+            if isinstance(cur, bool):
+                v = v if isinstance(v, bool) else str(v).lower() in ("1", "true", "yes")
+            elif isinstance(cur, int):
+                v = int(v)
+            elif isinstance(cur, float):
+                v = float(v)
+            elif isinstance(cur, str):
+                v = str(v)
+        except (TypeError, ValueError):
+            continue
+        setattr(dc, f.name, v)
+    return dc
+
 
 def load_config(path: str | None) -> Config:
-    """Read the producer preset/args and custom presets of a YAML config;
-    no path yields the defaults."""
+    """Load YAML config; missing file/path yields pure defaults.
+
+    Address, concurrency, watch_mode and ffmpeg_preset get defaults when
+    unset.
+    """
     cfg = Config()
-    if not path:
-        return cfg
-    import yaml
-    with open(path, "r", encoding="utf-8") as fh:
-        data = yaml.safe_load(fh) or {}
-    prod = data.get("producer") or {}
-    cfg.ffmpeg_preset = str(prod.get("ffmpeg_preset") or DEFAULT_PRESET)
-    cfg.ffmpeg_args = str(prod.get("ffmpeg_args") or "")
-    cfg.presets = {str(k): str(v)
-                   for k, v in (data.get("presets") or {}).items()}
+    data = {}
+    if path:
+        if yaml is None:
+            raise RuntimeError("pyyaml not available; cannot parse config file")
+        with open(path, "r", encoding="utf-8") as fh:
+            data = yaml.safe_load(fh) or {}
+    _fill(cfg.redis, data.get("redis") or {})
+    _fill(cfg.producer, data.get("producer") or {})
+    _fill(cfg.consumer, data.get("consumer") or {})
+    presets = data.get("presets") or {}
+    cfg.presets = {str(k): str(v) for k, v in presets.items()}
+
+    # Defaults.
+    if not cfg.redis.address:
+        cfg.redis.address = "localhost:6379"
+    if cfg.consumer.concurrency <= 0:
+        cfg.consumer.concurrency = 1
+    if not cfg.producer.watch_mode:
+        cfg.producer.watch_mode = "new"
+    if not cfg.producer.ffmpeg_preset:
+        cfg.producer.ffmpeg_preset = DEFAULT_PRESET
     return cfg
 
 
-def resolve_encode_args(cfg: Config, cli_args: str = "",
-                        cli_preset: str = "") -> tuple[str, str]:
-    """Resolve the encode argument string; returns (args, source).
-    Raises KeyError for an unknown preset name."""
+def resolve_encode_args(
+    cfg: Config,
+    cli_args: str = "",
+    cli_preset: str = "",
+) -> tuple[str, str]:
+    """Resolve the task's encode argument string.
+
+    5-level priority chain:
+      1. CLI --ffmpeg-args
+      2. CLI --preset
+      3. config producer.ffmpeg_args
+      4. config producer.ffmpeg_preset
+      5. default preset (h264-nvenc)
+
+    Returns ``(args, source_description)``. Raises KeyError for an unknown
+    preset name.
+    """
     if cli_args.strip():
         return cli_args.strip(), "cli:ffmpeg-args"
     if cli_preset.strip():
@@ -66,10 +170,10 @@ def resolve_encode_args(cfg: Config, cli_args: str = "",
         if args is None:
             raise KeyError(f"unknown preset: {cli_preset}")
         return args, f"cli:preset:{cli_preset}"
-    if cfg.ffmpeg_args.strip():
-        return cfg.ffmpeg_args.strip(), "config:ffmpeg_args"
-    if cfg.ffmpeg_preset.strip():
-        name = cfg.ffmpeg_preset.strip()
+    if cfg.producer.ffmpeg_args.strip():
+        return cfg.producer.ffmpeg_args.strip(), "config:ffmpeg_args"
+    if cfg.producer.ffmpeg_preset.strip():
+        name = cfg.producer.ffmpeg_preset.strip()
         args = cfg.get_preset(name)
         if args is None:
             raise KeyError(f"unknown preset: {name}")

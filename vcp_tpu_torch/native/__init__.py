@@ -4,16 +4,26 @@ reconstruction.
 
 ``get_lib()`` builds the sources (``build.SOURCES``) with g++ on first
 use into ``vcp_tpu_torch/_build/`` and returns the loaded library. These
-are host code, not device kernels. A failed build raises."""
+are host code, not device kernels. A failed build raises. The first use
+builds and loads under a lock, so threads that reach it together (a
+consumer's workers) share one build and one handle."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+
+_lock = threading.Lock()
+
+
+def get_lib() -> ctypes.CDLL:
+    with _lock:
+        return _load()
 
 
 @functools.lru_cache(maxsize=None)
-def get_lib() -> ctypes.CDLL:
+def _load() -> ctypes.CDLL:
     from .build import build
     lib = ctypes.CDLL(build())
     i64, i32 = ctypes.c_int64, ctypes.c_int32
@@ -98,3 +108,6 @@ def get_lib() -> ctypes.CDLL:
         i64, i32p, i32p, i8p, i32p,     # count + iq arrays
         i32p, i32p, i32p, i32]          # z_luma, cdc, cac, chroma_off
     return lib
+
+
+get_lib.cache_clear = _load.cache_clear   # the next get_lib() loads anew

@@ -18,6 +18,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
@@ -88,12 +89,13 @@ def build() -> str:
     so_path = os.path.join(BUILD_DIR, f"libvcp_host_{key}.so")
     if os.path.exists(so_path):
         return so_path
-    # per-process header dir and output name: concurrent first uses
-    # (test workers) never read a file another process is writing
+    # header dir and output name unique per process and thread:
+    # concurrent first uses (test workers, a consumer's worker threads)
+    # never read or replace a file another build is writing
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as inc:
         with open(os.path.join(inc, "tables_gen.h"), "w") as fh:
             fh.write(header)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
+        tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = ["g++", *CXX_FLAGS, f"-I{inc}", *srcs, "-o", tmp]
         proc = subprocess.run(cmd, capture_output=True, timeout=300)
     if proc.returncode != 0:
