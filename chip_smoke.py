@@ -72,15 +72,29 @@ VP9 WebM is refused at publish; a task without input is acked and
 dropped; the queue, the shared dir and the history end as the reference
 semantics say, and ``stats`` and ``clean --all`` print and clean them.
 
+Phase 3e runs CAVLC and the I16-only RD IDR: ``VCP_CABAC=0`` with
+``-c:v libx264 -preset fast -crf 23 -bf 0`` on 9 frames of 1080p beside
+the same arguments under CABAC (the same launches of kernels 1, 3 and 4,
+identical decoded pictures, the last equal to the encoder's recon, a PPS
+with entropy_coding_mode_flag 0), ``VCP_CABAC=0 VCP_BFRAMES=2
+VCP_PARTS=1 -p h264-cpu`` on the 5-frame B GOP (the I16-only RD IDR,
+partitioned half-pel P anchors and B pictures through the Python CAVLC
+writers) and ``VCP_RDI=1 -p h264-nvenc`` on 9 frames (the I16-only RD IDR
+under CABAC); each MP4 is decoded by the host decoder, and the host
+seconds of the entropy stage, of the Python CAVLC writers and of the RD
+IDR's dispatch are logged.
+
 It checks each MP4 (with the composition offsets of B streams), checks
 that the quality paths used the tools they add (quarter-pel vectors on
 the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
 and holds it against the synthetic source, checks that a GOP's NAL
-units are byte-identical between ``cuda`` and ``cpu`` (plain versions)
-on the speed path, the quality path without B pictures, a B GOP of
-``h264-cpu``, a B GOP of ``h264-nvenc-hq`` with ``VCP_HIER_ME=0`` (the
-search-only kernel at +-16 on both B lists) and the chunked quarter-pel
-P path (``-preset p7 -bf 0``) and IDR + 2 P of ``h265-nvenc`` and
+units and the last recon are identical between ``cuda`` and ``cpu``
+(plain versions) on the speed path, the quality path without B pictures,
+a B GOP of ``h264-cpu``, a B GOP of ``h264-nvenc-hq`` with
+``VCP_HIER_ME=0`` (the search-only kernel at +-16 on both B lists), the
+B GOP of phase 3e's CAVLC ``h264-cpu`` with ``VCP_HIER_ME=0``, and the
+chunked quarter-pel P path (``-preset p7 -bf 0``) and IDR + 2 P of
+``h265-nvenc`` and
 ``h265-cpu``, profiles the first three GOPs and an ``h265-cpu`` IDR + 2
 P (with the host seconds of its CABAC), and prints per-kernel times
 beside their bounds. Any failed phase raises, so the exit code is
@@ -88,8 +102,9 @@ nonzero; without a CUDA device it exits 2 and prints no result.
 ``--kernels-only`` stops after the kernel checks (a short first run
 after a kernel change), ``--hevc-only`` runs the HEVC phases alone (the
 hq path from 12 frames); neither prints a result line.
-``--control-only`` runs phase 3d alone on a fresh 40-frame Y4M and its
-own MP4 + AAC and ends with the same last line. Imports nothing of JAX
+``--cavlc-only`` runs phase 3e and its phase-4 GOP alone and prints no
+result. ``--control-only`` runs phase 3d alone on a fresh 40-frame Y4M
+and its own MP4 + AAC and ends with the same last line. Imports nothing of JAX
 or of ``vcp_tpu``.
 """
 
@@ -869,15 +884,19 @@ def observe_encoder(seen: dict):
     residual of every B slice, the vectors of P and B slices and those
     with a quarter phase, per P anchor the intra overlay's gate
     and the host seconds of the partition search and of the overlay (its
-    dispatch: the device runs behind), and the host seconds of each
-    ``audio_track_for`` (AAC decode and encode, or PCM encode); for HEVC
+    dispatch: the device runs behind), per IDR the host seconds of the RD
+    intra frame's dispatch (``encode_iframe_rd`` or ``encode_iframe_rd8``),
+    the host seconds of each Python CAVLC slice writer call
+    (``cavlc_writer.write_pslice`` / ``write_bslice``), and the host
+    seconds of each ``audio_track_for`` (AAC decode and encode, or PCM
+    encode); for HEVC
     the encoder objects, the host seconds of each
     ``syntax.encode_slice_data`` (the pure-Python CABAC), the vectors of
     P slices and those with a quarter phase, and the CTUs of IDRs with a
     left-dependent luma mode (planar, or angular below 26)."""
     from vcp_tpu_torch.codec import audio
-    from vcp_tpu_torch.codec.h264 import (bframe, encoder, entropy,
-                                          intra_rd, pframe)
+    from vcp_tpu_torch.codec.h264 import (bframe, cavlc_writer, encoder,
+                                          entropy, intra_rd, pframe)
     from vcp_tpu_torch.codec.h265 import encoder as h265enc
     from vcp_tpu_torch.codec.h265 import syntax as h265syn
     from vcp_tpu_torch.ops import motion
@@ -888,7 +907,9 @@ def observe_encoder(seen: dict):
     real_b = bframe.write_bslice
     timed = [(motion, "full_search_parts"), (motion, "hier_search_parts"),
              (intra_rd, "intra_overlay_pass"), (pframe, "_overlay_gate"),
-             (audio, "audio_track_for")]
+             (audio, "audio_track_for"), (intra_rd, "encode_iframe_rd"),
+             (intra_rd, "encode_iframe_rd8"),
+             (cavlc_writer, "write_pslice"), (cavlc_writer, "write_bslice")]
     real_timed = [getattr(m, k) for m, k in timed]
 
     def timer(key, fn):
@@ -927,6 +948,11 @@ def observe_encoder(seen: dict):
         i8 = kw["data"].get("i8")
         seen.setdefault("i8_share", []).append(
             0.0 if i8 is None else float(np.mean(i8)))
+        modes = kw["data"].get("modes")
+        if modes is not None and i8 is None:
+            seen.setdefault("idr_modes", []).append(
+                np.bincount(np.asarray(modes).ravel(), minlength=4)
+                .tolist())
         return real_i(*a, **kw)
 
     def vectors(mv):
@@ -1049,9 +1075,9 @@ def check_qpel_tools(label: str, seen: dict) -> None:
         raise AssertionError(f"{label}: no vector has a quarter-pel phase")
 
 
-def check_decoder(path: str, source) -> None:
+def check_decoder(path: str, source) -> list:
     """The port's host decoder on an MP4 the port wrote: every frame, in
-    display order, close to the synthetic source."""
+    display order, close to the synthetic source. Returns the frames."""
     from vcp_tpu_torch.codec.h264.decoder import psnr
     from vcp_tpu_torch.codec.ingest import open_video
     t0 = time.monotonic()
@@ -1069,6 +1095,7 @@ def check_decoder(path: str, source) -> None:
     if not min(db) >= DECODE_PSNR_FLOOR_DB:
         raise AssertionError(f"decoded luma PSNR {min(db):.2f} dB below "
                              "the floor: frames out of order or drifting")
+    return frames
 
 
 def check_b_tools(label: str, seen: dict) -> None:
@@ -1882,6 +1909,134 @@ def run_control_plane(tmp: str, av: dict, by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3e: CAVLC and the I16-only RD IDR
+# ---------------------------------------------------------------------------
+
+CAVLC_FRAMES = 9             # 1080p frames of cavlc-speed and rdi-nvenc
+# the speed shape (effort 4) at constant QP: -crf, so that no rate
+# controller reacts to the entropy coder's bit count
+CAVLC_SPEED_ARGS = ("-c:v libx264 -preset fast -crf 23 -bf 0 "
+                    "-movflags +faststart")
+# CAVLC on the quality preset: the I16-only RD IDR; VCP_CABAC=0 also turns
+# off the B pictures and partitions that -p h264-cpu adds with CABAC, so
+# both are turned on again, which puts the Python CAVLC P and B writers
+# on the path
+CAVLC_CPU_ENV = {"VCP_CABAC": "0", "VCP_BFRAMES": "2", "VCP_PARTS": "1"}
+
+
+def cavlc_mp4(path: str) -> bool:
+    """The MP4's PPS has entropy_coding_mode_flag 0."""
+    from vcp_tpu_torch.codec import mp4
+    from vcp_tpu_torch.codec.h264.headers import parse_pps
+    from vcp_tpu_torch.utils.bitstream import emulation_remove
+    pps = mp4.Mp4Demuxer(path).video.pps[0]
+    return not parse_pps(emulation_remove(pps[1:])).cabac
+
+
+def log_writers(label: str, seen: dict, n_frames: int) -> None:
+    """The host seconds of the entropy stage and of its Python CAVLC
+    writers, and the RD IDR dispatch."""
+    stage = sum(e.stage_s["entropy"] for e in seen["encoders"])
+    py_p, py_b = (seen.get(k, []) for k in ("write_pslice", "write_bslice"))
+    rd = seen.get("encode_iframe_rd", []) + seen.get("encode_iframe_rd8",
+                                                     [])
+    log(f"  {label}: entropy stage {stage:.3f} s for {n_frames} frames "
+        f"({stage / n_frames:.4f} s per frame); Python CAVLC P writer "
+        f"{sum(py_p):.3f} s over {len(py_p)} slices, B writer "
+        f"{sum(py_b):.3f} s over {len(py_b)} slices; native writers and "
+        f"unpacking {stage - sum(py_p) - sum(py_b):.3f} s; RD IDR "
+        f"dispatch {[round(t, 3) for t in rd]} s")
+
+
+def run_cavlc(tmp: str, frames, bq, by_path: dict) -> None:
+    """Phase 3e: ``VCP_CABAC=0`` on the speed shape beside its CABAC twin
+    (the same kernel launches, the same decoded pictures, equal to the
+    encoder's recon), on ``-p h264-cpu`` with B pictures and partitions
+    (the I16-only RD IDR, the Python CAVLC P and B writers), and
+    ``VCP_RDI=1 -p h264-nvenc`` (the I16-only RD IDR under CABAC)."""
+    kernels = ("motion_search", "deblock_fast", "deblock_general")
+    cli_args = [f"--ffmpeg-args={CAVLC_SPEED_ARGS}"]
+    speed = frames[:CAVLC_FRAMES]
+    pictures, recon = {}, {}
+    for label, env in (("cavlc-speed", {"VCP_CABAC": "0"}),
+                       ("cavlc-speed-cabac", None)):
+        by_path[label], seen = run_main_path(label, speed, tmp, cli_args,
+                                             [0], kernels, env=env)
+        log_writers(label, seen, len(speed))
+        path = os.path.join(tmp, f"{label}.mp4")
+        if cavlc_mp4(path) != (env is not None):
+            raise AssertionError(f"{label}: PPS entropy_coding_mode_flag")
+        pictures[label] = check_decoder(path, speed)
+        recon[label] = seen["encoders"][0].recon_planes
+        sizes = [len(x) for x in video_samples(path)]
+        log(f"  {label}: IDR {sizes[0]} bytes, P pictures {sum(sizes[1:])} "
+            f"bytes ({min(sizes[1:])}-{max(sizes[1:])} each)")
+    a, b = by_path["cavlc-speed"], by_path["cavlc-speed-cabac"]
+    if any(a[k] != b[k] for k in kernels):
+        raise AssertionError(f"cavlc-speed launches {a} != CABAC's {b}")
+    same = all(np.array_equal(x, y) for fa, fb in zip(
+        pictures["cavlc-speed"], pictures["cavlc-speed-cabac"])
+        for x, y in zip(fa, fb))
+    last = all(np.array_equal(x, y) for x, y in zip(
+        pictures["cavlc-speed"][-1], recon["cavlc-speed"]))
+    log(f"  cavlc-speed: launches == CABAC twin's; {len(speed)} decoded "
+        f"pictures identical to the twin's: {same}; last == the "
+        f"encoder's recon: {last}")
+    if not (same and last):
+        raise AssertionError("cavlc-speed: decoded pictures differ")
+
+    by_path["cavlc-cpu"], seen = run_main_path(
+        "cavlc-cpu", bq, tmp, ["-p", "h264-cpu"], [0],
+        ("deblock_fast", "deblock_general"), env=CAVLC_CPU_ENV,
+        cts=gop_cts(len(bq), 2))
+    log_writers("cavlc-cpu", seen, len(bq))
+    path = os.path.join(tmp, "cavlc-cpu.mp4")
+    keys = ("p_part_mbs", "b_mode0_mbs", "b_mode1_mbs", "b_mode2_mbs",
+            "b_no_residual_mbs")
+    log("  cavlc-cpu: " + ", ".join(f"{k} {seen.get(k, 0)}" for k in keys)
+        + f", p_intra_mbs {seen.get('p_intra_mbs', 0)}")
+    missing = [k for k in keys if not seen.get(k, 0) > 0]
+    if missing or not cavlc_mp4(path) or not seen.get("write_bslice") \
+            or not seen.get("encode_iframe_rd"):
+        raise AssertionError(f"cavlc-cpu: no MB counted in {missing}, or "
+                             "not CAVLC, or no Python B writer / "
+                             "encode_iframe_rd call")
+    check_decoder(path, bq)
+
+    speed_rdi = frames[:CAVLC_FRAMES]
+    by_path["rdi-nvenc"], seen = run_main_path(
+        "rdi-nvenc", speed_rdi, tmp, ["-p", "h264-nvenc"], [0], kernels,
+        env={"VCP_RDI": "1"})
+    log_writers("rdi-nvenc", seen, len(speed_rdi))
+    modes = seen.get("idr_modes", [])
+    log(f"  rdi-nvenc: I16 modes of the IDR (V, H, DC, Plane) {modes}")
+    if not seen.get("encode_iframe_rd") or len(modes) != 1 \
+            or sum(m > 0 for m in modes[0]) < 2:
+        raise AssertionError("rdi-nvenc: no per-MB I16 modes in the IDR")
+    check_decoder(os.path.join(tmp, "rdi-nvenc.mp4"), speed_rdi)
+
+
+def run_cavlc_only(frames, bq, t_start: float) -> int:
+    """``--cavlc-only``: phase 3e and its phase-4 GOP alone, for a short
+    run after a change to the CAVLC writers or the RD IDR; prints no
+    result."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    by_path: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"phase 3e: CAVLC and the I16 RD IDR "
+            f"({time.monotonic() - t_start:.1f} s)")
+        run_cavlc(tmp, frames, bq, by_path)
+    with scoped_env({**CAVLC_CPU_ENV, "VCP_HIER_ME": "0"}):
+        check_devices("cavlc-cpu-exhaustive", bq[:4],
+                      BUILTIN_PRESETS["h264-cpu"],
+                      count=("motion_search_only",))
+    log(f"CAVLC phases done at {time.monotonic() - t_start:.1f} s; "
+        f"launches {by_path}")
+    print("cavlc only: no result")
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: cuda vs cpu on one GOP of each path
 # ---------------------------------------------------------------------------
 
@@ -1895,7 +2050,7 @@ def check_devices(label: str, frames, ffargs: str,
     h, w = frames[0][0].shape
     devices = (DEVICE, "cpu")
     counters = {k: launch_counters()[k] for k in count}
-    out = {}
+    out, recon = {}, {}
     for dev in devices:
         cfg = EncoderConfig.from_params(params, w, h, 30, 1)
         enc = H264Encoder(cfg, device=dev)
@@ -1912,6 +2067,7 @@ def check_devices(label: str, frames, ffargs: str,
         if dev == devices[0] and not all(launched.values()):
             raise AssertionError(f"{label}: kernels not launched "
                                  f"{launched}")
+        recon[dev] = enc.recon_planes
         if dev == devices[0]:
             ry = enc.recon_planes[0].astype(np.float64)
             mse = float(np.mean((ry - frames[-1][0].astype(np.float64))
@@ -1923,10 +2079,14 @@ def check_devices(label: str, frames, ffargs: str,
                 raise AssertionError(f"PSNR {psnr:.2f} dB below floor")
     a, b = (out[d] for d in devices)
     same = len(a) == len(b) and all(x == y for x, y in zip(a, b))
+    same_recon = all(np.array_equal(x, y) for x, y in zip(
+        *(recon[d] for d in devices)))
     log(f"  NAL units {devices[0]} == {devices[1]}: {same} ({len(a)} "
-        f"access units, {sum(len(x[0]) for x in a)} bytes)")
-    if not same:
-        raise AssertionError(f"{label}: cuda and cpu bitstreams differ")
+        f"access units, {sum(len(x[0]) for x in a)} bytes), last recon "
+        f"equal: {same_recon}")
+    if not (same and same_recon):
+        raise AssertionError(f"{label}: cuda and cpu bitstreams or recon "
+                             "differ")
 
 
 def check_pyramid_pstep(frames) -> None:
@@ -2192,6 +2352,10 @@ def main(argv: list[str]) -> int:
                                                  HEVC_CUT), t_start)
     if "--control-only" in argv:
         return run_control_only(card, t_start)
+    if "--cavlc-only" in argv:
+        return run_cavlc_only(synth_frames(H, W, CAVLC_FRAMES, CAVLC_FRAMES),
+                              synth_frames_subpel(H, W, B_FRAMES, B_FRAMES),
+                              t_start)
 
     log("phase 2: kernels vs plain versions at 1088x1920")
     rows = [*check_motion(dev, HP, W, reps=20),
@@ -2242,6 +2406,7 @@ def main(argv: list[str]) -> int:
             "medium-bf0", qframes, tmp, q_cli, [0, Q_CUT],
             ("deblock_fast", "deblock_general"))
         check_quality_tools("medium-bf0", seen)
+        log_writers("medium-bf0", seen, len(qframes))
         by_path["medium-bf0-exhaustive"], seen = run_main_path(
             "medium-bf0-exhaustive", qframes, tmp, q_cli, [0, Q_CUT],
             ("motion_search_only", "deblock_fast", "deblock_general"),
@@ -2282,6 +2447,9 @@ def main(argv: list[str]) -> int:
         log("phase 3d: control plane, redis-serve + 2 producers + a "
             f"consumer on cuda ({time.monotonic() - t_start:.1f} s)")
         run_control_plane(tmp, av, by_path)
+        log("phase 3e: CAVLC and the I16 RD IDR "
+            f"({time.monotonic() - t_start:.1f} s)")
+        run_cavlc(tmp, frames, bq, by_path)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")
@@ -2295,6 +2463,11 @@ def main(argv: list[str]) -> int:
         # partitions on the anchor
         check_devices("h264-nvenc-hq-exhaustive", bq[:4],
                       BUILTIN_PRESETS["h264-nvenc-hq"],
+                      count=("motion_search_only",))
+    # IDR (I16-only RD), P3, B1, B2 through the CAVLC writers
+    with scoped_env({**CAVLC_CPU_ENV, "VCP_HIER_ME": "0"}):
+        check_devices("cavlc-cpu-exhaustive", bq[:4],
+                      BUILTIN_PRESETS["h264-cpu"],
                       count=("motion_search_only",))
     # IDR + 1 P: the chunked quarter-pel P path
     check_devices("p7-bf0", qframes[:2], P7_ARGS)

@@ -110,20 +110,25 @@ def test_decoder_port_mp4s(port_mp4s, preset):
 
 
 def test_decoder_cavlc_mp4(port_mp4s, tmp_path, monkeypatch):
-    """A CAVLC stream, which vcp_tpu writes with ``VCP_CABAC=0`` and the
-    port does not (A4): the CAVLC slice parsers and the numpy intra
-    reconstruction give vcp_tpu's frames."""
+    """A CAVLC stream (``VCP_CABAC=0``), written by vcp_tpu and by the
+    port, which write the same file: the CAVLC slice parsers and the
+    numpy intra reconstruction give vcp_tpu's frames."""
     from vcp_tpu_torch.codec.h264.headers import parse_pps
+    from vcp_tpu_torch.pipeline import executor as t_executor
     from vcp_tpu_torch.utils.bitstream import emulation_remove
     frames = port_mp4s["h264-nvenc"][1]
     src, path = str(tmp_path / "src.y4m"), str(tmp_path / "cavlc.mp4")
+    ours = str(tmp_path / "cavlc-port.mp4")
     write_y4m(src, frames, fps_num=30)
     monkeypatch.setenv("VCP_CABAC", "0")
     j_executor.execute(src, path, NVENC)
+    t_executor.execute(src, ours, NVENC, device="cpu")
     monkeypatch.delenv("VCP_CABAC")
-    pps = t_mp4.Mp4Demuxer(path).video.pps[0]
+    with open(path, "rb") as a, open(ours, "rb") as b:
+        assert a.read() == b.read()
+    pps = t_mp4.Mp4Demuxer(ours).video.pps[0]
     assert not parse_pps(emulation_remove(pps[1:])).cabac
-    got = list(t_ingest.open_video(path).frames)
+    got = list(t_ingest.open_video(ours).frames)
     _assert_frames_equal(got, list(j_ingest.open_video(path).frames))
     assert len(got) == 9
     assert min(psnr(g[0], f[0]) for g, f in zip(got, frames)) > 30.0

@@ -1,6 +1,8 @@
-"""RD intra frame (I16 / i8 per MB) of vcp_tpu_torch against vcp_tpu's
-``intra_rd.encode_iframe_rd8`` on the CPU: every output array equal, on
-gradient, texture and noise content. The float32 costs that drive the
+"""RD intra frames of vcp_tpu_torch against vcp_tpu's on the CPU: the
+I16 / i8 frame ``intra_rd.encode_iframe_rd8`` on gradient, texture and
+noise content, and the I16-only frame ``encode_iframe_rd`` (anti-diagonal
+wavefront) at frames taller and wider than they are long, QPs 0, 28 and
+51, with and without the deblock: every output array equal. The float32 costs that drive the
 decisions are compared with a relative tolerance of 1e-5 (the port sums
 the bit proxies exactly, XLA in float32 in its own order; and XLA's log2
 differs from the port's table by one float32 step in about half the
@@ -79,12 +81,49 @@ def test_both_mb_types_win_somewhere():
     assert len(set(np.concatenate([m.ravel() for m in i8_modes]))) >= 6
 
 
+# (content, MB rows, MB columns): n_mby > n_mbx and n_mby < n_mbx
+RD_SHAPES = [("gradient", 5, 3), ("texture", 3, 6)]
+
+
+@pytest.mark.parametrize("kind,nby,nbx", RD_SHAPES)
+@pytest.mark.parametrize("qp", [0, 28, 51])
+@pytest.mark.parametrize("deblock", [True, False])
+def test_encode_iframe_rd(kind, nby, nbx, qp, deblock):
+    y, u, v = (p[:16 * nby // k, :16 * nbx // k]
+               for p, k in zip(_content(kind, qp), (1, 2, 2)))
+    qpc = jtf.chroma_qp(qp)
+    want = jir.encode_iframe_rd(y, u, v, qp, qpc, deblock)
+    got = tir.encode_iframe_rd(_t(y), _t(u), _t(v), qp, qpc, deblock)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+def test_encode_iframe_rd_modes():
+    """Across the shapes and QPs above every I16 and chroma mode is
+    chosen somewhere."""
+    modes, cmodes = set(), set()
+    for kind, nby, nbx in RD_SHAPES:
+        for qp in (0, 28, 51):
+            y, u, v = (_t(p[:16 * nby // k, :16 * nbx // k])
+                       for p, k in zip(_content(kind, qp), (1, 2, 2)))
+            out = tir.encode_iframe_rd(y, u, v, qp, jtf.chroma_qp(qp))
+            modes |= set(out["modes"].numpy().ravel().tolist())
+            cmodes |= set(out["cmodes"].numpy().ravel().tolist())
+    assert modes == cmodes == {0, 1, 2, 3}
+
+
 def test_diagonal_maps_and_tables():
     from vcp_tpu.codec.h264.decoder import _I8_TABS
     from vcp_tpu.codec.h265.intra_rd import diagonal_maps2
     for shape in ((4, 6), (1, 5), (7, 2), (68, 120)):
         for a, b in zip(tir.diagonal_maps2(*shape), diagonal_maps2(*shape)):
             np.testing.assert_array_equal(a, b)
+        for a, b in zip(tir.diagonal_maps(*shape),
+                        jir._diagonal_maps(*shape)):
+            np.testing.assert_array_equal(a, b)
+    assert tir.diagonal_maps(68, 120)[0].shape == (187, 68)
     ref = np.stack([np.stack(_I8_TABS[m]) for m in range(3, 9)])
     np.testing.assert_array_equal(tir.I8_TABS, ref)
     assert (tir.I16_OVERHEAD_BITS, tir.I8_OVERHEAD_BITS) == \

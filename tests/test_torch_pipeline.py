@@ -352,10 +352,16 @@ def test_h264_task_equals_execute(address, tmp_path):
 
 def test_not_ported_setting_acked_and_dropped(address, tmp_path,
                                               monkeypatch):
-    """``VCP_CABAC=0`` (CAVLC, not ported) fails the task with the
-    not-ported text; the task is acked and dropped and the same worker
-    goes on to the next task."""
-    monkeypatch.setenv("VCP_CABAC", "0")
+    """A setting the encoder does not take (its NotImplementedError; every
+    H.264 setting runs now, so the encoder is made to raise) fails the
+    task with the not-ported text; the task is acked and dropped and the
+    same worker goes on to the next task."""
+    from vcp_tpu_torch.codec.h264 import encoder
+
+    def not_ported(*a, **kw):
+        raise NotImplementedError("not ported yet: a setting (ROADMAP A10)")
+
+    monkeypatch.setattr(encoder, "encode_stream", not_ported)
     cfg = make_cfg(address, tmp_path)
     src = _small_y4m(tmp_path / "in.y4m", n=2)
     mp4 = make_test_mp4(tmp_path / "next.mp4")
@@ -382,12 +388,41 @@ def test_not_ported_setting_acked_and_dropped(address, tmp_path,
     finally:
         consumer.stop()
     rec = HistoryManager(s.client).get_task_history("cavlc")
-    assert rec.status == "failed" and "CAVLC" in rec.error \
-        and "A4" in rec.error
+    assert rec.status == "failed" and "not ported" in rec.error \
+        and "A10" in rec.error
     assert not os.path.exists(tmp_path / "enc" / "cavlc.mp4")
     assert os.path.exists(src)               # the source stays on failure
     info = s.get_queue_info()
     assert (info.length, info.pending) == (0, 0)
+
+
+def test_cavlc_task_matches_vcp_tpu(address, tmp_path, monkeypatch):
+    """A ``VCP_CABAC=0`` task (CAVLC) succeeds in the port's consumer, and
+    its MP4 equals vcp_tpu's encode of the same task byte for byte."""
+    from vcp_tpu.pipeline import executor as j_executor
+    monkeypatch.setenv("VCP_CABAC", "0")
+    cfg = make_cfg(address, tmp_path)
+    src = _small_y4m(tmp_path / "in.y4m", n=2)
+    ref = str(tmp_path / "ref.mp4")
+    j_executor.execute(src, ref, BUILTIN_PRESETS["h264-nvenc"])
+    s = Stream(address)
+    s.create_consumer_group()
+    s.publish(Task(id="cavlc", input_path=src, original_name="in.y4m",
+                   output_dir=str(tmp_path / "enc"), output_name="in.mp4",
+                   ffmpeg_args=BUILTIN_PRESETS["h264-nvenc"],
+                   verify_output=True))
+    consumer = Consumer(cfg, name="c_cavlc_ok", concurrency=1, device="cpu")
+    consumer.start()
+    try:
+        assert wait_until(lambda: consumer.counters.succeeded >= 1,
+                          timeout=120), consumer.counters.snapshot()
+    finally:
+        consumer.stop()
+    with open(ref, "rb") as a, open(tmp_path / "enc" / "in.mp4",
+                                    "rb") as b:
+        assert a.read() == b.read()
+    assert HistoryManager(s.client).get_task_history("cavlc").status \
+        == "completed"
 
 
 def test_consumer_without_card_acks_nothing(address, tmp_path, monkeypatch):

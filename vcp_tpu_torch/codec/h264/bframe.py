@@ -1,11 +1,12 @@
-"""B slice host entropy: the CABAC B-slice writer.
+"""B slice host entropy.
 
-Port of ``write_bslice`` of ``vcp_tpu/codec/h264/bframe.py`` with
-``cabac=True``: B pictures between P anchors, one reference per list (L0
-= past anchor, L1 = future anchor), mb types B_L0_16x16 / B_L1_16x16 /
-B_Bi_16x16 with explicit MVs, B_Skip / B_Direct_16x16 by spatial direct
-prediction, non-reference (nal_ref_idc 0). Runs the C++ writer
-``vcp_write_bslice_cabac`` in ``vcp_tpu_torch.native``.
+Port of ``write_bslice`` of ``vcp_tpu/codec/h264/bframe.py``: B pictures
+between P anchors, one reference per list (L0 = past anchor, L1 = future
+anchor), mb types B_L0_16x16 / B_L1_16x16 / B_Bi_16x16 with explicit
+MVs, B_Skip / B_Direct_16x16 by spatial direct prediction, non-reference
+(nal_ref_idc 0). A CABAC slice runs the C++ writer
+``vcp_write_bslice_cabac`` in ``vcp_tpu_torch.native``, a CAVLC slice the
+Python writer ``cavlc_writer.write_bslice``, as in ``vcp_tpu``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ... import native
+from . import cavlc_writer
 from . import headers as H
 from .entropy import _I32P, _U8P, _nal, _xy, levels
 
@@ -20,13 +22,16 @@ from .entropy import _I32P, _U8P, _nal, _xy, levels
 def write_bslice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
                  qp: int, data: dict, deblock: bool = False,
                  poc_lsb: int = 0) -> bytes:
-    """One CABAC B slice NAL. data: "mv0" / "mv1" (nMBy, nMBx, 2) [dy, dx]
-    quarter-pel, "mode" (nMBy, nMBx) with 0 = L0 / 1 = L1 / 2 = Bi, the
-    level arrays as for P, and optionally the colocated anchor's
-    "col_zero" grid (colZeroFlag, default all False) and "col_safe" grid
-    (MBs where B_Skip may be chosen, default all True)."""
+    """One B slice NAL in the PPS's entropy mode. data: "mv0" / "mv1"
+    (nMBy, nMBx, 2) [dy, dx] quarter-pel, "mode" (nMBy, nMBx) with 0 = L0
+    / 1 = L1 / 2 = Bi, the level arrays as for P, and optionally the
+    colocated anchor's "col_zero" grid (colZeroFlag, default all False)
+    and "col_safe" grid (MBs where B_Skip may be chosen, default all
+    True)."""
     if not pp.cabac:
-        raise ValueError("pp.cabac must match the slice entropy mode")
+        return cavlc_writer.write_bslice(sp, pp, frame_num=frame_num, qp=qp,
+                                         data=data, deblock=deblock,
+                                         poc_lsb=poc_lsb)
     lib = native.get_lib()
     n_mby, n_mbx = sp.mb_height, sp.mb_width
     mode = np.ascontiguousarray(data["mode"], np.int32)

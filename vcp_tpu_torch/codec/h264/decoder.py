@@ -36,7 +36,8 @@ from ...utils.bitstream import BitReader, emulation_remove
 from ..mp4 import split_annexb
 from . import headers as H
 from .cavlc import decode_residual_block
-from .entropy import CHROMA_BLK_ORDER, MB_TYPE_I_PCM
+from .cavlc_writer import CHROMA_BLK_ORDER
+from .entropy import MB_TYPE_I_PCM
 from .frame_ops import LUMA_BLK_ORDER
 from .tables import CBP_INTRA_TO_CODE, ZIGZAG_4x4
 

@@ -11,17 +11,22 @@ P anchors every bframes+1 display frames (the per-frame P step of
 non-reference B pictures between them (``gop_ops.encode_bframe``),
 dispatched in decode order with each frame's entropy inputs packed into
 one int16 buffer on the device, then fetched and written in that order.
-The settings that run: the speed shape (effort <= 4: full-pel ME, 4x4
-transform, row-pattern I16 IDR), with or without B pictures, and the
-quality shapes (efforts 5-9: pyramid or exhaustive full-pel search
-refined to half-pel at efforts 5-6 and to quarter-pel at 7-9, adaptive
-8x8 transform, RD intra IDR with I16 and i8 MBs, High profile), by
-default with 2 B pictures, partitioned P anchors and intra MBs in P
-pictures. ``encode_file`` reads a Y4M file or decodes H.264 in MP4, MKV
-or AVI on the host (``codec.ingest``), scales on the device for ``-s`` /
-``-vf scale`` (``ops.scale``) and muxes the input's audio track
-(``codec.audio``). Settings outside these raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+``encode_frame`` codes one frame at a time (IDR, then P pictures), with
+one device step and one slice writer per frame.
+Every setting of ``EncoderConfig`` runs, as in ``vcp_tpu``: the speed
+shape (effort <= 4: full-pel ME, 4x4 transform, row-pattern I16 IDR),
+with or without B pictures, the quality shapes (efforts 5-9: pyramid or
+exhaustive full-pel search refined to half-pel at efforts 5-6 and to
+quarter-pel at 7-9, adaptive 8x8 transform, RD intra IDR with I16 and i8
+MBs, High profile), by default with 2 B pictures, partitioned P anchors
+and intra MBs in P pictures, CABAC or CAVLC, and the overrides between
+them (``VCP_T8``, ``VCP_RDI``, ``VCP_PARTS``, ``VCP_INTRA_P``,
+``VCP_BFRAMES``, ``VCP_CABAC``); an RD intra IDR without the CABAC 8x8
+transform is the I16-only ``intra_rd.encode_iframe_rd``.
+``encode_file`` reads a Y4M file or decodes H.264 in MP4, MKV or AVI on
+the host (``codec.ingest``), scales on the device for ``-s`` / ``-vf
+scale`` (``ops.scale``) and muxes the input's audio track
+(``codec.audio``).
 """
 
 from __future__ import annotations
@@ -136,39 +141,6 @@ class EncoderConfig:
         return cfg
 
 
-def check_supported(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for settings outside the ported shapes:
-    effort <= 4 without 8x8 transform, overlay or RD intra (partitions,
-    which run with B pictures only, as in vcp_tpu, take the quarter-pel
-    MC at full-pel vectors); efforts 5-9 (half-pel ME at 5-6,
-    quarter-pel at 7-9) with the 8x8 transform and RD intra; both CABAC,
-    with or without B pictures. (Partitions and the overlay reach only
-    the B-GOP coder's P anchors, as in vcp_tpu; the chunked P path has
-    neither.)"""
-    todo = []
-    if not cfg.cabac:
-        todo.append("CAVLC / VCP_CABAC=0 (ROADMAP A4)")
-    if cfg.effort >= 5:
-        if not cfg.transform8:
-            todo.append(f"effort {cfg.effort} without the 8x8 transform / "
-                        "VCP_T8=0 (needs the I16-only RD intra frame; "
-                        "ROADMAP A1c)")
-        if not cfg.use_rd_intra():
-            todo.append(f"effort {cfg.effort} without RD intra (ROADMAP "
-                        "A1c)")
-    else:
-        if cfg.transform8:
-            todo.append("8x8 transform below effort 5 (ROADMAP A1c)")
-        if cfg.use_rd_intra():
-            todo.append("RD intra below effort 5 (ROADMAP A1c)")
-    if cfg.bframes > 0 and cfg.use_intra_p() and not (
-            cfg.parts and cfg.transform8):
-        todo.append("the intra overlay without partitions or the 8x8 "
-                    "transform (ROADMAP A1c)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
-
-
 def idr_qp(qp: int) -> int:
     """I-frame QP: a few steps below the P QP."""
     return max(0, qp - int(os.environ.get("VCP_QPI_OFFSET", "3")))
@@ -183,7 +155,6 @@ class H264Encoder:
     P_CHUNKS = (8, 4, 2, 1)
 
     def __init__(self, cfg: EncoderConfig, device: str = "cuda"):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         # the adaptive 8x8 transform needs the High profile; B pictures
@@ -200,6 +171,7 @@ class H264Encoder:
         self.pp = headers.PicParams(init_qp=26, cabac=cfg.cabac,
                                     transform_8x8=cfg.transform8)
         self.idr_count = 0
+        self.frame_index = 0        # frames coded so far (encode_frame's GOP)
         self._frame_num = 0
         self._recon = None          # (y, u, v) uint8 planes on the device
         # host seconds per stage, summed over GOPs: decode (pulling the
@@ -258,11 +230,9 @@ class H264Encoder:
         rd_intra = cfg.use_rd_intra()
         planes = [self._upload(p) for p in self._pad(*frames[0])]
         if rd_intra:
-            # quality shape: dense RD-mode intra (per-MB I16 / i8 choice);
-            # one IDR per GOP, so the dense fetch is amortized
-            from . import intra_rd
-            iout = intra_rd.encode_iframe_rd8(*planes, qp_i, qpc_i,
-                                              cfg.deblock)
+            # quality shape: dense RD-mode intra (per-MB mode choice); one
+            # IDR per GOP, so the dense fetch is amortized
+            iout, ikeys = self._rd_iframe(planes, qp_i, qpc_i)
             recon = (iout["recon_y"], iout["recon_u"], iout["recon_v"])
         else:
             imeta, icount, iblocks, *recon = gop_ops.encode_iframe_sparse(
@@ -294,9 +264,7 @@ class H264Encoder:
         # Phase 2: fetch + host entropy, IDR first.
         out: list[tuple[bytes, bool]] = []
         if rd_intra:
-            idata = {k: iout[k].cpu().numpy() for k in (
-                "luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
-                "modes", "cmodes", "i8", "i8_modes", "i8_luma")}
+            idata = {k: iout[k].cpu().numpy() for k in ikeys}
             t2 = time.perf_counter()
         else:
             icnt = int(icount[0])
@@ -326,22 +294,95 @@ class H264Encoder:
                     poc_lsb=2 * len(out)), False))
                 self._frame_num += 1
             self.stage_s["entropy"] += time.perf_counter() - t2
+        self.frame_index += len(frames)
         if self.rc:
             self.rc.update(len(frames), sum(len(nal) for nal, _ in out))
         return out
 
-    def _rd_or_row_iframe(self, planes, qp_i: int, qpc_i: int):
-        """Dense IDR on the device: the RD intra frame (I16 / i8 per MB)
-        at the quality presets, else the row-pattern I16 frame. Returns
-        (device dict, entropy keys)."""
-        keys = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
-        if self.cfg.use_rd_intra():
-            from . import intra_rd
+    LEVEL_KEYS = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+
+    def _rd_iframe(self, planes, qp_i: int, qpc_i: int):
+        """The RD intra IDR on the device: I16 or I_NxN / i8 per MB when
+        the stream is High-profile CABAC, else I16 only. Returns (device
+        dict, entropy keys)."""
+        from . import intra_rd
+        cfg = self.cfg
+        if cfg.transform8 and cfg.cabac:
             return (intra_rd.encode_iframe_rd8(*planes, qp_i, qpc_i,
-                                               self.cfg.deblock),
-                    keys + ("modes", "cmodes", "i8", "i8_modes", "i8_luma"))
+                                               cfg.deblock),
+                    self.LEVEL_KEYS + ("modes", "cmodes", "i8", "i8_modes",
+                                       "i8_luma"))
+        return (intra_rd.encode_iframe_rd(*planes, qp_i, qpc_i, cfg.deblock),
+                self.LEVEL_KEYS + ("modes", "cmodes"))
+
+    def _rd_or_row_iframe(self, planes, qp_i: int, qpc_i: int):
+        """Dense IDR on the device: the RD intra frame when RD intra is
+        on, else the row-pattern I16 frame. Returns (device dict, entropy
+        keys)."""
+        if self.cfg.use_rd_intra():
+            return self._rd_iframe(planes, qp_i, qpc_i)
         from .frame_ops import encode_iframe
-        return encode_iframe(*planes, qp_i, qpc_i, self.cfg.deblock), keys
+        return (encode_iframe(*planes, qp_i, qpc_i, self.cfg.deblock),
+                self.LEVEL_KEYS)
+
+    INTRA_P_KEYS = ("intra", "i8", "imodes", "icmodes", "luma_dc",
+                    "i8_modes")
+
+    def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                     force_idr: bool = False) -> tuple[bytes, bool]:
+        """Encode one frame without B pictures: an IDR at every
+        ``cfg.gop_size``-th frame (or when ``force_idr``), else a P
+        picture from the last recon, each through one device step and one
+        slice writer (no rate control: ``cfg.qp``). Returns (Annex-B
+        access unit, is_idr)."""
+        cfg = self.cfg
+        if cfg.bframes > 0:
+            raise ValueError("per-frame encode path does not support "
+                             "B frames; use encode_gop/encode_stream")
+        is_idr = force_idr or self.frame_index % cfg.gop_size == 0 \
+            or self._recon is None
+        planes = [self._upload(p) for p in self._pad(y, u, v)]
+        off = self.pp.chroma_qp_index_offset
+        if is_idr:
+            qp_i = idr_qp(cfg.qp) if cfg.gop_size > 1 else cfg.qp
+            out, keys = self._rd_or_row_iframe(planes, qp_i,
+                                               chroma_qp(qp_i, off))
+            nal = entropy.write_islice(
+                self.sp, self.pp, frame_num=0,
+                idr_pic_id=self.idr_count % 65536, qp=qp_i,
+                data={k: out[k].cpu().numpy() for k in keys},
+                deblock=cfg.deblock)
+            self.idr_count += 1
+            self._frame_num = 1
+        else:
+            out, nal = self._encode_pframe(planes, cfg.qp,
+                                           chroma_qp(cfg.qp, off))
+            self._frame_num += 1
+        self._recon = (out["recon_y"], out["recon_u"], out["recon_v"])
+        self.frame_index += 1
+        return nal, is_idr
+
+    def _encode_pframe(self, planes, qp: int, qpc: int):
+        """One P picture of ``encode_frame``: (device dict, slice NAL)."""
+        from . import pframe
+        cfg = self.cfg
+        out = pframe.encode_pframe(
+            *planes, *self._recon, qp, qpc,
+            search_range=search_range_for_effort(cfg.effort),
+            deblock=cfg.deblock, subpel=subpel_for_effort(cfg.effort),
+            t8=cfg.transform8, parts=cfg.parts,
+            intra_mbs=cfg.use_intra_p())
+        keys = ["mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac"]
+        if cfg.transform8:
+            keys.append("t8")
+        if cfg.parts:
+            keys += ["mv8", "parts"]
+        if "intra" in out:
+            keys += self.INTRA_P_KEYS
+        data = {k: out[k].cpu().numpy() for k in keys}
+        return out, entropy.write_pslice(
+            self.sp, self.pp, frame_num=self._frame_num, qp=qp, data=data,
+            deblock=cfg.deblock)
 
     def _encode_gop_b(self, frames: list) -> list[tuple]:
         """IDR + P anchors every bframes+1 display positions + non-reference
@@ -484,6 +525,7 @@ class H264Encoder:
 
         self._recon = prev_recon
         self._frame_num = len(anchors)
+        self.frame_index += n
         if self.rc:
             self.rc.update(n, sum(len(s[0]) for s in out))
         return out

@@ -1,15 +1,17 @@
-"""Host entropy coding: CABAC slice writers for the main path.
+"""Host entropy coding: the I and P slice writers of the main path.
 
-Copies of ``vcp_tpu``'s native CABAC routes: ``write_islice`` for an IDR
-of I16x16 MBs, with the row pattern or with per-MB modes, or of I16x16
-mixed with I_NxN / transform-8x8 MBs (``vcp_tpu/codec/h264/entropy.py``
-with ``cabac=True``), and ``write_pslice`` for a P slice
-(``vcp_tpu/codec/h264/pframe.py`` with ``cabac=True``): P_L0_16x16 +
-P_Skip MBs, with the per-MB transform_size_8x8 flag when the PPS turns
-the 8x8 transform on, partitioned MBs (16x8 / 8x16 / P_8x8) on the 8x8
-MV grid, and intra MBs (I16x16 / I_NxN) among them. All run the C++
-writers in ``vcp_tpu_torch.native`` and wrap the RBSP into an Annex-B
-NAL.
+Copies of ``vcp_tpu``'s routes, chosen by the PPS's entropy mode.
+``write_islice`` writes an IDR of I16x16 MBs, with the row pattern or
+with per-MB modes, or (CABAC) of I16x16 mixed with I_NxN /
+transform-8x8 MBs (``vcp_tpu/codec/h264/entropy.py``), and
+``write_pslice`` a P slice (``vcp_tpu/codec/h264/pframe.py``):
+P_L0_16x16 + P_Skip MBs, with the per-MB transform_size_8x8 flag when
+the PPS turns the 8x8 transform on, partitioned MBs (16x8 / 8x16 /
+P_8x8) on the 8x8 MV grid, and (CABAC) intra MBs (I16x16 / I_NxN) among
+them. The CABAC slices and the CAVLC IDR and P slices of 16x16 MBs with
+the 4x4 transform run the C++ writers in ``vcp_tpu_torch.native``; the
+other CAVLC P slices run the Python writer of ``cavlc_writer``, as in
+``vcp_tpu``. Each returns an Annex-B NAL.
 """
 
 from __future__ import annotations
@@ -19,14 +21,13 @@ import ctypes
 import numpy as np
 
 from ... import native
+from . import cavlc_writer
 from . import headers as H
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
-# chroma 4x4 block order inside an MB's 8x8 chroma plane, and the I_PCM
-# mb_type (the host decoder's syntax walks read both)
-CHROMA_BLK_ORDER = np.array([(0, 0), (0, 1), (1, 0), (1, 1)], dtype=np.int32)
+# the I_PCM mb_type (the host decoder's syntax walks read it)
 MB_TYPE_I_PCM = 25
 
 
@@ -42,13 +43,12 @@ def _nal(lib, rbsp_buf: np.ndarray, rbsp_len: int, nal_type: int,
 def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
                  idr_pic_id: int, qp: int, data: dict,
                  deblock: bool = False, poc_lsb: int = 0) -> bytes:
-    """One CABAC IDR slice NAL from the level arrays of ``encode_iframe``
-    or ``encode_iframe_rd8``. Without "modes" in ``data`` MB row 0 is
-    I16x16-DC and rows 1.. I16x16-V; with "modes" / "cmodes" every MB
-    carries its own; with an "i8" grid that flags any MB, those MBs are
-    I_NxN with the 8x8 transform ("i8_modes", "i8_luma")."""
-    if not pp.cabac:
-        raise ValueError("pp.cabac must match the slice entropy mode")
+    """One IDR slice NAL from the level arrays of ``encode_iframe``,
+    ``encode_iframe_rd`` or ``encode_iframe_rd8``, in the PPS's entropy
+    mode. Without "modes" in ``data`` MB row 0 is I16x16-DC and rows 1..
+    I16x16-V; with "modes" / "cmodes" every MB carries its own; with an
+    "i8" grid that flags any MB (CABAC only), those MBs are I_NxN with
+    the 8x8 transform ("i8_modes", "i8_luma")."""
     lib = native.get_lib()
     n_mby, n_mbx = sp.mb_height, sp.mb_width
     cap = n_mby * n_mbx * 2048 + 4096
@@ -59,6 +59,8 @@ def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
     luma_ac = data["luma_ac"]
     i8 = data.get("i8")
     has_i8 = i8 is not None and bool(np.any(i8))
+    if has_i8 and not pp.cabac:
+        raise ValueError("I_NxN macroblocks need the CABAC writer")
     if has_i8:
         # the writer reads an i8 MB's 4x64 scans from its luma_ac slot
         i8 = np.ascontiguousarray(i8, np.uint8)
@@ -82,9 +84,11 @@ def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
     else:
         if len(ptrs) == 6:
             ptrs += [_I32P(), _I32P()]
-        n = lib.vcp_write_islice_cabac(*head, *ptrs, *tail)
+        writer = lib.vcp_write_islice_cabac if pp.cabac \
+            else lib.vcp_write_islice
+        n = writer(*head, *ptrs, *tail)
     if n < 0:
-        raise RuntimeError("native cabac islice buffer overflow")
+        raise RuntimeError("native islice buffer overflow")
     return _nal(lib, out, int(n), H.NAL_SLICE_IDR, 3)
 
 
@@ -144,21 +148,31 @@ def levels(data: dict) -> list[np.ndarray]:
 def write_pslice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
                  qp: int, data: dict, deblock: bool = False,
                  poc_lsb: int = 0) -> bytes:
-    """One CABAC P slice NAL from an ``unpack_sparse_chunk`` dict or the
-    dict of ``pframe.encode_pframe`` (mv in quarter-pel [dy, dx];
-    ``active`` marks the MBs present in the dense arrays, the rest are
-    P_Skip). When the PPS has the 8x8 transform on, every MB with luma
-    residual codes its transform_size_8x8 flag from the optional ``t8``
-    grid (absent = all 4x4). As in ``vcp_tpu``, a frame with intra MBs
-    ("intra", with "i8", I16 modes "imodes", chroma modes "icmodes", I16
-    DC levels "luma_dc", i8 block modes "i8_modes"; an intra MB's "luma"
-    row holds its I16 AC blocks or its four i8 scans) goes to the intra
-    writer, one with partitioned MBs ("parts", vectors "mv8" on the 8x8
-    grid) to the partition writer, the rest to the 16x16 writer."""
-    if not pp.cabac:
-        raise ValueError("pp.cabac must match the slice entropy mode")
-    lib = native.get_lib()
+    """One P slice NAL from an ``unpack_sparse_chunk`` dict or the dict of
+    ``pframe.encode_pframe`` (mv in quarter-pel [dy, dx]; ``active``
+    marks the MBs present in the dense arrays, the rest are P_Skip), in
+    the PPS's entropy mode. When the PPS has the 8x8 transform on, every
+    MB with luma residual codes its transform_size_8x8 flag from the
+    optional ``t8`` grid (absent = all 4x4). As in ``vcp_tpu``, a CABAC
+    frame with intra MBs ("intra", with "i8", I16 modes "imodes", chroma
+    modes "icmodes", I16 DC levels "luma_dc", i8 block modes "i8_modes";
+    an intra MB's "luma" row holds its I16 AC blocks or its four i8
+    scans) goes to the intra writer, one with partitioned MBs ("parts",
+    vectors "mv8" on the 8x8 grid) to the partition writer, the rest to
+    the 16x16 writer. A CAVLC frame takes the native writer when it has
+    neither partitions nor the 8x8 transform, else the Python writer
+    (intra MBs need CABAC)."""
     n_mby, n_mbx = sp.mb_height, sp.mb_width
+    if not pp.cabac:
+        if _any(data, "intra"):
+            raise ValueError("intra macroblocks in a P slice need CABAC")
+        if _any(data, "parts") or _any(data, "t8") or pp.transform_8x8:
+            mv8_xy, parts = mv8_grid_xy(data, n_mby, n_mbx)
+            return cavlc_writer.write_pslice(
+                sp, pp, frame_num=frame_num, qp=qp, data=data,
+                mv8_xy=mv8_xy, parts=parts, deblock=deblock,
+                poc_lsb=poc_lsb)
+    lib = native.get_lib()
     cap = n_mby * n_mbx * 2048 + 4096
     out = np.empty(cap, np.uint8)
     head = (n_mby, n_mbx, qp, pp.init_qp, sp.log2_max_frame_num, frame_num,
@@ -192,8 +206,9 @@ def write_pslice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
         else:
             if t8 is not None:
                 raise ValueError("t8 macroblocks need pp.transform_8x8")
-            n = lib.vcp_write_pslice_cabac(*head, _ptr(act, _U8P),
-                                           _ptr(mv_xy), *tail)
+            writer = lib.vcp_write_pslice_cabac if pp.cabac \
+                else lib.vcp_write_pslice
+            n = writer(*head, _ptr(act, _U8P), _ptr(mv_xy), *tail)
     if n < 0:
-        raise RuntimeError("native cabac pslice buffer overflow")
+        raise RuntimeError("native pslice buffer overflow")
     return _nal(lib, out, int(n), H.NAL_SLICE_NONIDR, 2)

@@ -1,20 +1,24 @@
 """RD-selected intra frame encode (the quality presets' IDR), wavefront.
 
-Port of ``encode_iframe_rd8`` and its helpers from
-``vcp_tpu/codec/h264/intra_rd.py``. Every MB picks, by rate-distortion
-cost (SSD + lambda2 * bits estimate), between Intra_16x16 (Vertical /
-Horizontal / DC / Plane, spec 8.3.3) and I_NxN with the 8x8 transform
+Port of ``encode_iframe_rd``, ``encode_iframe_rd8`` and their helpers
+from ``vcp_tpu/codec/h264/intra_rd.py``. Every MB picks, by
+rate-distortion cost (SSD + lambda2 * bits estimate), its Intra_16x16
+mode (Vertical / Horizontal / DC / Plane, spec 8.3.3) and, in
+``encode_iframe_rd8``, between that and I_NxN with the 8x8 transform
 (four 8x8 blocks, 9 directional modes each, spec 8.3.2), plus a chroma
 mode shared by Cb and Cr (DC / Horizontal / Vertical / Plane, spec 8.3.4).
 
-The frame runs over slope-2 diagonals d = 2*mby + mbx: an i8 block reads
-the above-right MB's bottom row, which slope-1 anti-diagonals would
-process concurrently. Every MB on a diagonal depends only on earlier
-diagonals, so each of the 2*n_mby + n_mbx - 2 steps handles a whole
-diagonal as a batch of lanes (the ``lax.scan`` of the reference is a
-Python loop over device tensors here). Within a step the four 8x8 blocks
-run in raster order, each predicting from the plane as the previous one
-left it; the MB-level decision then overwrites the MB with the winner.
+An I16 MB reads its left, top and top-left neighbours, so
+``encode_iframe_rd`` runs over anti-diagonals d = mby + mbx
+(``diagonal_maps``). An i8 block also reads the above-right MB's bottom
+row, which an anti-diagonal would process concurrently, so
+``encode_iframe_rd8`` runs over slope-2 diagonals d = 2*mby + mbx
+(``diagonal_maps2``). Every MB on a diagonal depends only on earlier
+diagonals, so each step handles a whole diagonal as a batch of lanes
+(the ``lax.scan`` of the reference is a Python loop over device tensors
+here). Within an i8 trial the four 8x8 blocks run in raster order, each
+predicting from the plane as the previous one left it; the MB-level
+decision then overwrites the MB with the winner.
 
 Sample arithmetic is int32-exact; the costs are float32 built from the
 device-independent pieces of ``rdcost``.
@@ -48,13 +52,11 @@ _I8_NEED_T = np.array([1, 0, 0, 1, 1, 1, 1, 1, 0], bool)
 _I8_NEED_L = np.array([0, 1, 0, 0, 1, 1, 1, 0, 1], bool)
 
 
-def diagonal_maps2(nby: int, nbx: int):
-    """Slope-2 wavefront index maps: MB (mby, mbx) runs at step d = 2*mby
-    + mbx. Returns (MBY, MBX, VALID) each (D, L) plus the inverse maps
-    (DMAP, KMAP) with stacked[DMAP[y, x], KMAP[y, x]] == (y, x)."""
-    D = 2 * nby + nbx - 2 if nby and nbx else 0
-    lanes = [[(mby, d - 2 * mby) for mby in range(nby)
-              if 0 <= d - 2 * mby < nbx] for d in range(D)]
+def _maps(lanes: list, nby: int, nbx: int):
+    """Index maps of a wavefront given each step's (mby, mbx) cells:
+    (MBY, MBX, VALID) each (D, L) plus the inverse maps (DMAP, KMAP) with
+    stacked[DMAP[y, x], KMAP[y, x]] == (y, x)."""
+    D = len(lanes)
     L = max(1, max(len(c) for c in lanes) if lanes else 1)
     MBY = np.zeros((D, L), np.int32)
     MBX = np.zeros((D, L), np.int32)
@@ -69,6 +71,21 @@ def diagonal_maps2(nby: int, nbx: int):
             DMAP[mby, mbx] = d
             KMAP[mby, mbx] = k
     return MBY, MBX, VALID, DMAP, KMAP
+
+
+def diagonal_maps(nby: int, nbx: int):
+    """Anti-diagonal wavefront maps (``_maps``): MB (mby, mbx) runs at
+    step d = mby + mbx, lanes in increasing mby."""
+    return _maps([[(mby, d - mby) for mby in range(nby) if 0 <= d - mby < nbx]
+                  for d in range(nby + nbx - 1)], nby, nbx)
+
+
+def diagonal_maps2(nby: int, nbx: int):
+    """Slope-2 wavefront maps (``_maps``): MB (mby, mbx) runs at step d =
+    2*mby + mbx."""
+    D = 2 * nby + nbx - 2 if nby and nbx else 0
+    return _maps([[(mby, d - 2 * mby) for mby in range(nby)
+                   if 0 <= d - 2 * mby < nbx] for d in range(D)], nby, nbx)
 
 
 def _build_i8_tables() -> np.ndarray:
@@ -482,13 +499,14 @@ def _chroma_trial(pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc: int,
 
 
 class _Wavefront:
-    """The slope-2 schedule of an n_mby x n_mbx frame on ``dev``: per step
-    d the lanes' MB coordinates (clamped to 0 on invalid lanes), validity
-    and availability of the top / left neighbours, plus the inverse map
-    that puts per-step outputs back in raster order."""
+    """The schedule of an n_mby x n_mbx frame on ``dev`` by the maps of
+    ``maps`` (``diagonal_maps`` or ``diagonal_maps2``): per step d the
+    lanes' MB coordinates (clamped to 0 on invalid lanes), validity and
+    availability of the top / left neighbours, plus the inverse map that
+    puts per-step outputs back in raster order."""
 
-    def __init__(self, n_mby: int, n_mbx: int, dev):
-        MBY, MBX, VALID, DMAP, KMAP = diagonal_maps2(n_mby, n_mbx)
+    def __init__(self, n_mby: int, n_mbx: int, dev, maps=diagonal_maps2):
+        MBY, MBX, VALID, DMAP, KMAP = maps(n_mby, n_mbx)
         # the whole schedule goes up in a few copies
         self.mby = torch.from_numpy(MBY).to(dev).long()
         self.mbx = torch.from_numpy(MBX).to(dev).long()
@@ -526,6 +544,80 @@ def _bordered_planes(h: int, w: int, dev):
     mg = torch.full((2 * (h // 16) + 2, 2 * (w // 16)), -1,
                     dtype=torch.int32, device=dev)
     return py, pu, torch.zeros_like(pu), mg
+
+
+def _deblock_intra(recon_y, recon_u, recon_v, qp: int, t8=None):
+    """The in-loop filter of an all-intra frame at one QP."""
+    from ...ops import deblock as dbf
+    dev = recon_y.device
+    h, w = recon_y.shape
+    n_mby, n_mbx = h // 16, w // 16
+    qp_mb = torch.full((n_mby, n_mbx), qp, dtype=torch.int32, device=dev)
+    intra = torch.ones((n_mby, n_mbx), dtype=torch.bool, device=dev)
+    nz = torch.zeros((h // 4, w // 4), dtype=torch.bool, device=dev)
+    mvq = torch.zeros((n_mby, n_mbx, 2), dtype=torch.int32, device=dev)
+    return dbf.deblock_frame(recon_y, recon_u, recon_v, qp_mb, intra, nz,
+                             mvq, t8=t8)
+
+
+def _recon_planes(py, pu, pv):
+    """The frame inside the bordered planes."""
+    h, w = py.shape[0] - 17, py.shape[1] - 17
+    return (py[1:h + 1, 1:w + 1].contiguous(),
+            pu[1:h // 2 + 1, 1:w // 2 + 1].contiguous(),
+            pv[1:h // 2 + 1, 1:w // 2 + 1].contiguous())
+
+
+def encode_iframe_rd(y, u, v, qp: int, qpc: int, deblock: bool = False):
+    """Intra frame of I_16x16 MBs, each with its RD-chosen luma mode and
+    chroma mode, over the anti-diagonal wavefront.
+
+    y: (H, W) (multiples of 16, pre-padded); u, v: (H/2, W/2); any
+    integer dtype. Returns the level arrays of ``frame_ops.encode_iframe``
+    plus "modes" / "cmodes" (n_mby, n_mbx) int32, and the uint8 recon
+    planes."""
+    y, u, v = (a.to(torch.int32) for a in (y, u, v))
+    dev = y.device
+    h, w = y.shape
+    n_mby, n_mbx = h // 16, w // 16
+    wf = _Wavefront(n_mby, n_mbx, dev, maps=diagonal_maps)
+    lam2 = rdcost.lam2_for_qp(qp)
+    lam2c = rdcost.lam2_for_qp(qpc)
+    ymb, umb, vmb = _mb_planes(y, u, v)
+    py, pu, pv, _ = _bordered_planes(h, w, dev)
+    a16 = torch.arange(16, device=dev)
+    a8 = torch.arange(8, device=dev)
+
+    outs = []
+    for d in range(wf.steps):
+        valid, mbyc, mbxc, avt, avl = wf.lanes(d)
+        y0 = mbyc * 16 + 1
+        x0 = mbxc * 16 + 1
+        top, left, corner = _gather_edges(py, y0, x0, a16)
+        mode, z_dc, z_ac, recon, _ = _luma_modes(
+            ymb[mbyc, mbxc], top, left, corner, avt, avl, qp, lam2)
+        _scatter(py, torch.where(valid, y0, h + 1), x0, recon, a16)
+        cmode, _, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
+            pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
+        c0s = torch.where(valid, c0, h // 2 + 1)
+        _scatter(pu, c0s, cx0, urec, a8)
+        _scatter(pv, c0s, cx0, vrec, a8)
+        outs.append((mode, z_dc, z_ac, cmode, *clevels))
+
+    modes, luma_dc, luma_ac, cmodes, cb_dc, cb_ac, cr_dc, cr_ac = \
+        wf.raster(outs)
+    recon = _recon_planes(py, pu, pv)
+    if deblock:
+        recon = _deblock_intra(*recon, qp)
+    return {
+        "luma_dc": luma_dc, "luma_ac": luma_ac,
+        "cb_dc": cb_dc, "cb_ac": cb_ac.reshape(n_mby, n_mbx, 4, 16),
+        "cr_dc": cr_dc, "cr_ac": cr_ac.reshape(n_mby, n_mbx, 4, 16),
+        "modes": modes, "cmodes": cmodes,
+        "recon_y": recon[0].to(torch.uint8),
+        "recon_u": recon[1].to(torch.uint8),
+        "recon_v": recon[2].to(torch.uint8),
+    }
 
 
 def encode_iframe_rd8(y, u, v, qp: int, qpc: int, deblock: bool = False):
@@ -587,27 +679,17 @@ def encode_iframe_rd8(y, u, v, qp: int, qpc: int, deblock: bool = False):
     cb_ac = cb_ac.reshape(n_mby, n_mbx, 4, 16)
     cr_ac = cr_ac.reshape(n_mby, n_mbx, 4, 16)
 
-    recon_y = py[1:h + 1, 1:w + 1].contiguous()
-    recon_u = pu[1:h // 2 + 1, 1:w // 2 + 1].contiguous()
-    recon_v = pv[1:h // 2 + 1, 1:w // 2 + 1].contiguous()
-
+    recon = _recon_planes(py, pu, pv)
     if deblock:
-        from ...ops import deblock as dbf
-        qp_mb = torch.full((n_mby, n_mbx), qp, dtype=torch.int32, device=dev)
-        intra = torch.ones((n_mby, n_mbx), dtype=torch.bool, device=dev)
-        nz = torch.zeros((h // 4, w // 4), dtype=torch.bool, device=dev)
-        mvq = torch.zeros((n_mby, n_mbx, 2), dtype=torch.int32, device=dev)
-        recon_y, recon_u, recon_v = dbf.deblock_frame(
-            recon_y, recon_u, recon_v, qp_mb, intra, nz, mvq, t8=i8_grid)
-
+        recon = _deblock_intra(*recon, qp, t8=i8_grid)
     return {
         "luma_dc": luma_dc, "luma_ac": luma_ac,
         "cb_dc": cb_dc, "cb_ac": cb_ac, "cr_dc": cr_dc, "cr_ac": cr_ac,
         "modes": modes, "cmodes": cmodes,
         "i8": i8_grid, "i8_modes": i8_modes, "i8_luma": i8_luma,
-        "recon_y": recon_y.to(torch.uint8),
-        "recon_u": recon_u.to(torch.uint8),
-        "recon_v": recon_v.to(torch.uint8),
+        "recon_y": recon[0].to(torch.uint8),
+        "recon_u": recon[1].to(torch.uint8),
+        "recon_v": recon[2].to(torch.uint8),
     }
 
 
@@ -692,7 +774,6 @@ def intra_overlay_pass(cur_y, cur_u, cur_v, ry, ru, rv, inter_cost,
         "luma_dc": luma_dc, "luma_mux": luma_mux, "i8_modes": i8_modes,
         "cb_dc": cb_dc, "cb_ac": cb_ac.reshape(n_mby, n_mbx, 4, 16),
         "cr_dc": cr_dc, "cr_ac": cr_ac.reshape(n_mby, n_mbx, 4, 16),
-        "recon_y": py[1:h + 1, 1:w + 1].contiguous(),
-        "recon_u": pu[1:h // 2 + 1, 1:w // 2 + 1].contiguous(),
-        "recon_v": pv[1:h // 2 + 1, 1:w // 2 + 1].contiguous(),
+        **dict(zip(("recon_y", "recon_u", "recon_v"),
+                   _recon_planes(py, pu, pv))),
     }

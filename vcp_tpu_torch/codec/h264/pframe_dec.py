@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .cavlc import decode_residual_block
-from .entropy import CHROMA_BLK_ORDER
+from .cavlc_writer import CHROMA_BLK_ORDER
 from .frame_ops import LUMA_BLK_ORDER
 from .tables import CBP_TABLE
 

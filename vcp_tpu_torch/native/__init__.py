@@ -1,5 +1,5 @@
-"""Host C++ library: the encoder's CABAC slice writers and NAL escaping,
-and the host decoder's deblocking filter, CABAC slice parser and
+"""Host C++ library: the encoder's CABAC and CAVLC slice writers and NAL
+escaping, and the host decoder's deblocking filter, CABAC slice parser and
 reconstruction.
 
 ``get_lib()`` builds the sources (``build.SOURCES``) with g++ on first
@@ -31,6 +31,19 @@ def _load() -> ctypes.CDLL:
     i32p = ctypes.POINTER(ctypes.c_int32)
     lib.vcp_escape.restype = i64
     lib.vcp_escape.argtypes = [u8p, i64, u8p]
+    # CAVLC writers (entropy.cpp)
+    lib.vcp_write_islice.restype = i64
+    lib.vcp_write_islice.argtypes = [
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32p, i32p, i32p, i32p, i32p, i32p,   # level arrays
+        i32p, i32p,                     # modes, cmodes (nullable)
+        u8p, i64]
+    lib.vcp_write_pslice.restype = i64
+    lib.vcp_write_pslice.argtypes = [
+        i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        u8p, i32p,                      # active (nullable), mv_xy
+        i32p, i32p, i32p, i32p, i32p,   # luma + chroma arrays
+        u8p, i64]
     lib.vcp_write_islice_cabac.restype = i64
     lib.vcp_write_islice_cabac.argtypes = [
         i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,

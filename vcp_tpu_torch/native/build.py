@@ -1,9 +1,10 @@
-"""Build the host library: the CABAC slice writers and NAL escaping of
-the encoder (``cabac.cpp``, ``entropy.cpp``) and the host decoder's
-deblocking filter, CABAC slice parser and reconstruction
+"""Build the host library: the CABAC and CAVLC slice writers and NAL
+escaping of the encoder (``cabac.cpp``, ``entropy.cpp``) and the host
+decoder's deblocking filter, CABAC slice parser and reconstruction
 (``deblock.cpp``, ``h264parse.cpp``, ``h264recon.cpp``).
 
-Generates ``tables_gen.h`` from the port's own tables (the CABAC
+Generates ``tables_gen.h`` from the port's own tables (the CAVLC VLC
+tables and CBP maps of ``codec.h264.tables``; the CABAC
 context-init (m, n) pairs of ``codec.h264.cabac_tables``; the dequant
 scales, scans, chroma QP map, quarter-pel case table and intra gather
 tables of ``ops.transform``, ``ops.transform8``, ``ops.motion`` and
@@ -27,6 +28,49 @@ SOURCES = ("cabac.cpp", "entropy.cpp", "deblock.cpp", "h264parse.cpp",
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
+def _vlc(code: str) -> str:
+    return "{%d,%d}" % (len(code), int(code, 2) if code else 0)
+
+
+def _vlc_rows(name: str, rows: list[list[str | None]], width: int) -> str:
+    """A C table of VLC codes, ``rows`` x ``width``; a missing code is
+    {0,0}."""
+    cells = ["{" + ",".join(_vlc(c) if c is not None else "{0,0}"
+                            for c in row + [None] * (width - len(row)))
+             + "}" for row in rows]
+    return (f"static const VLC {name}[{len(rows)}][{width}] = "
+            "{" + ",".join(cells) + "};")
+
+
+def cavlc_tables() -> list[str]:
+    """The CAVLC writer's tables (``entropy.cpp``): coeff_token per nC
+    class and for chroma DC, total_zeros for 4x4 blocks and chroma DC,
+    run_before, and the inter / intra coded_block_pattern maps."""
+    from ..codec.h264 import tables as T
+
+    def ct(name, tab, max_tc):
+        return _vlc_rows(name, [[tab.get((t1, tc)) for t1 in range(4)]
+                                for tc in range(max_tc + 1)], 4)
+
+    def by_count(tab, n, width):
+        return [list(tab.get(k, [])) for k in range(n)], width
+
+    lines = ["struct VLC { uint8_t len; uint16_t bits; };",
+             ct("CT_NC0", T.COEFF_TOKEN_NC0, 16),
+             ct("CT_NC2", T.COEFF_TOKEN_NC2, 16),
+             ct("CT_NC4", T.COEFF_TOKEN_NC4, 16),
+             ct("CT_CHROMA", T.COEFF_TOKEN_CHROMA_DC, 4),
+             _vlc_rows("TZ_4x4", *by_count(T.TOTAL_ZEROS_4x4, 16, 16)),
+             _vlc_rows("TZ_CHROMA", *by_count(T.TOTAL_ZEROS_CHROMA_DC, 4,
+                                              4)),
+             _vlc_rows("RUN_BEFORE", *by_count(T.RUN_BEFORE, 8, 15))]
+    for name, tab in (("CBP_INTER_CODE", T.CBP_INTER_TO_CODE),
+                      ("CBP_INTRA_CODE", T.CBP_INTRA_TO_CODE)):
+        lines.append(f"static const uint8_t {name}[48] = {{"
+                     + ",".join(str(tab[c]) for c in range(48)) + "};")
+    return lines
+
+
 def generate_tables_header() -> str:
     from ..codec.h264.cabac_tables import CTX_INIT_I, CTX_INIT_PB, N_CTX
 
@@ -34,6 +78,7 @@ def generate_tables_header() -> str:
         "// GENERATED by vcp_tpu_torch/native/build.py.",
         "#pragma once",
         "#include <cstdint>",
+        *cavlc_tables(),
         f"#define VCP_N_CTX {N_CTX}",
     ]
 

@@ -44,6 +44,10 @@ class BitWriter:
         """Signed Exp-Golomb: v>0 → 2v-1, v<=0 → -2v."""
         self.ue(2 * value - 1 if value > 0 else -2 * value)
 
+    def bits(self, code: str) -> None:
+        """Write a literal bit-string like '0001011'."""
+        self.u(len(code), int(code, 2) if code else 0)
+
     def byte_align(self, bit: int = 0) -> None:
         while self._nbits % 8:
             self.u(1, bit)
