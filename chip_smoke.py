@@ -84,6 +84,23 @@ under CABAC); each MP4 is decoded by the host decoder, and the host
 seconds of the entropy stage, of the Python CAVLC writers and of the RD
 IDR's dispatch are logged.
 
+Phase 3f runs the tile mesh (``parallel.mesh``) on the card: the CLI
+encodes 9 frames of ``-p h264-nvenc`` with ``VCP_MESH=t`` and t copies of
+``cuda:0`` visible, t = 2 and 4, so that each P frame runs as t bands
+(kernel 1 with a row offset into the whole reference) and the gathered
+planes are deblocked by ``deblock_general`` without the strong filter;
+the launches must be the predicted ones and the NAL units those of the
+one-device encode of the same frames. Then 5 frames of ``VCP_CABAC=0
+-c:v libx264 -preset medium`` on 4 bands (sr 12 and half-pel: kernel 2
+with a row offset), equal to the one-device encode with the exhaustive
+search; the 4-band speed MP4 is decoded on the host. Phase 2 holds the
+band form of kernels 1 and 2 against ``full_search`` / ``mc_luma`` with
+``row0`` on 2 and 4 bands of 1088x1920 and times one band launch; phase
+4 holds both mesh GOPs and ``encode_iframe_batch_sharded`` on 4 1080p
+frames between ``cuda`` and ``cpu``; phase 5 profiles the mesh GOP at t
+= 4. With more than one card the speed path also runs over the cards
+themselves.
+
 It checks each MP4 (with the composition offsets of B streams), checks
 that the quality paths used the tools they add (quarter-pel vectors on
 the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
@@ -103,7 +120,8 @@ nonzero; without a CUDA device it exits 2 and prints no result.
 after a kernel change), ``--hevc-only`` runs the HEVC phases alone (the
 hq path from 12 frames); neither prints a result line.
 ``--cavlc-only`` runs phase 3e and its phase-4 GOP alone and prints no
-result. ``--control-only`` runs phase 3d alone on a fresh 40-frame Y4M
+result; ``--mesh-only`` runs the band checks of phase 2, phase 3f and
+its phase-4 and phase-5 work and prints no result. ``--control-only`` runs phase 3d alone on a fresh 40-frame Y4M
 and its own MP4 + AAC and ends with the same last line. Imports nothing of JAX
 or of ``vcp_tpu``.
 """
@@ -420,7 +438,7 @@ def check_motion(dev, h, w, reps):
                "bound_sequence": best_seq,
                "bound_po_per_sm_clock": per_clk[best_seq],
                "sm_clock_mhz": clocks["under_load"],
-               "plan": motion_cuda.launch_plan(h, w, sr),
+               "plan": motion_cuda.launch_plan(h, w, sr, dev),
                "ms_2160x3840": ms_big, "ref_ms_2160x3840": ref_ms_big,
                "po_per_sm_clock_2160x3840": po_clk(ms_big,
                                                    *STRESS_SHAPES[-1]),
@@ -436,6 +454,57 @@ def check_motion(dev, h, w, reps):
         rows.append(row)
     return rows
 
+
+
+MESH_TILES = (2, 4)          # bands of the tile mesh on one card
+
+
+def check_motion_bands(dev, h, w) -> dict:
+    """The band form of both instantiations (the tile mesh's P step):
+    every band of an h x w frame cut into 2 and into 4, at frame row
+    ``row0`` against the whole reference, held against the plain
+    ``full_search`` / ``mc_luma`` with ``row0`` on two contents (shifted
+    texture with noise; the checkerboard, every difference 255); and the
+    device ms of one band launch (the median band) for the rows, beside
+    the whole frame's. Returns name -> fields of the kernel row."""
+    from vcp_tpu_torch.ops import motion, motion_cuda
+    from vcp_tpu_torch.tools import probe_motion
+    contents = [(c, r) for name, c, r in _motion_contents(h, w, 2)
+                if name in ("shifted+noise", "checkerboard")]
+    out = {}
+    for with_pred, sr, lam, name, _ in MOTION_ROWS:
+        err, band_ms, plans = 0, {}, {}
+        for n_tile in MESH_TILES:
+            hb = h // n_tile
+            for c, r in contents:
+                cur = torch.as_tensor(c, dtype=torch.int32, device=dev)
+                ref = torch.as_tensor(r, dtype=torch.int32, device=dev)
+                for t in range(n_tile):
+                    band = cur[t * hb:(t + 1) * hb].contiguous()
+                    got = motion_cuda.motion_search(band, ref, sr, lam,
+                                                    with_pred, row0=t * hb)
+                    mv = motion.full_search(band, ref, sr, lam, t * hb)[0]
+                    err = max(err, max_abs_err(
+                        got if with_pred else (got,),
+                        (mv, motion.mc_luma(ref, mv, sr, t * hb))
+                        if with_pred else (mv,)))
+            cur, ref = probe_motion.test_planes(dev, h, w)
+            band_ms[str(n_tile)] = statistics.median(
+                probe_motion.device_ms(
+                    lambda b=cur[t * hb:(t + 1) * hb].contiguous(), t=t:
+                    motion_cuda.motion_search(b, ref, sr, lam, with_pred,
+                                              row0=t * hb))
+                for t in range(n_tile))
+            plans[str(n_tile)] = motion_cuda.launch_plan(hb, w, sr, dev)
+        log(f"  {name} bands of {h}x{w} at sr {sr} (row0 against the whole "
+            f"reference, 2 contents): max_abs_err {err} against full_search"
+            f" / mc_luma with row0; ms per band launch {band_ms} "
+            f"(2 / 4 bands), plans {plans}")
+        if err:
+            raise AssertionError(f"{name}: a band disagrees (max err {err})")
+        out[name] = {"band_max_abs_err": err, "band_ms": band_ms,
+                     "band_plan": plans}
+    return out
 
 def _deblock_planes(rng, h, w):
     """Smooth content with 4x4 blocking steps, where the filters fire."""
@@ -596,9 +665,9 @@ def check_deblock_general_no_strong(dev, h, w, reps):
         lambda: deblock.deblock_general_plain(y, u, v, *grids,
                                               strong=False),
         sum(g.numel() for g in grids) * 4, luma * 35 + chroma * 20)
-    row["note"] = ("strong=False; its one caller in vcp_tpu is the "
-                   "multi-chip step (ROADMAP A10), so no main path of the "
-                   "port launches it yet")
+    row["note"] = ("strong=False; its one caller is the tile mesh's P "
+                   "step (phase 3f), which deblocks the gathered planes "
+                   "without a scalar QP")
     return row
 
 
@@ -2037,6 +2106,229 @@ def run_cavlc_only(frames, bq, t_start: float) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f: the tile mesh
+# ---------------------------------------------------------------------------
+
+MESH_FRAMES = 9              # IDR + one chunk of 8 P pictures
+# the medium preset under CAVLC: no B pictures, 8x8 transform or
+# partitions, so the mesh takes it; sr 12 with half-pel, the search-only
+# kernel in bands
+MESH_Q_ARGS = "-c:v libx264 -preset medium -b:v 10M -movflags +faststart"
+MESH_Q_ENV = {"VCP_CABAC": "0"}
+MESH_BATCH = 4               # 1080p frames of the sharded intra batch
+
+
+@contextlib.contextmanager
+def mesh_on(n_tile: int | None):
+    """While active, ``VCP_MESH=n_tile`` with ``n_tile`` copies of the
+    ``DEVICE`` visible (the bands share card 0 or the CPU), or with
+    ``n_tile`` None the devices as they are and no ``VCP_MESH``; yields
+    the list of meshes ``H264Encoder._encode_gop_mesh`` is called with."""
+    from vcp_tpu_torch.codec.h264.encoder import H264Encoder
+    from vcp_tpu_torch.parallel import mesh as meshmod
+    real_vis, real_gop = (meshmod.visible_devices,
+                          H264Encoder._encode_gop_mesh)
+    meshes: list = []
+
+    def gop(self, frames, mesh):
+        meshes.append(mesh)
+        return real_gop(self, frames, mesh)
+    if n_tile is not None:
+        one = torch.device("cpu") if DEVICE == "cpu" \
+            else torch.device("cuda", 0)
+        meshmod.visible_devices = lambda device: [one] * n_tile
+    H264Encoder._encode_gop_mesh = gop
+    try:
+        with scoped_env(None if n_tile is None
+                        else {"VCP_MESH": str(n_tile)}):
+            yield meshes
+    finally:
+        meshmod.visible_devices = real_vis
+        H264Encoder._encode_gop_mesh = real_gop
+
+
+def _mesh_path(label: str, frames, tmp: str, cli_args: list[str],
+               n_tile: int | None, want: dict, ref_label: str,
+               env: dict | None = None) -> tuple[dict, dict]:
+    """One CLI encode over the mesh: it must go through
+    ``_encode_gop_mesh`` on a (1, n_tile) mesh, launch exactly ``want``
+    and give the video samples of the one-device path ``ref_label``."""
+    with mesh_on(n_tile) as meshes:
+        launches, seen = run_main_path(
+            label, frames, tmp, cli_args, [0],
+            tuple(k for k, v in want.items() if v), env=env)
+    shapes = [m.shape for m in meshes]
+    devices = sorted({str(d) for m in meshes for d in m.flat})
+    same = video_samples(os.path.join(tmp, f"{label}.mp4")) == \
+        video_samples(os.path.join(tmp, f"{ref_label}.mp4"))
+    log(f"  {label}: meshes {shapes} on {devices}; launches == predicted "
+        f"{want}: {launches == want}; video samples == {ref_label}'s: "
+        f"{same}")
+    if not meshes or any(sh["tile"] < 2 for sh in shapes) \
+            or launches != want or not same:
+        raise AssertionError(f"{label}: meshes {shapes}, launches "
+                             f"{launches} (predicted {want}), samples equal "
+                             f"to {ref_label}'s: {same}")
+    return launches, seen
+
+
+def run_mesh(tmp: str, frames, bq, by_path: dict) -> None:
+    """Phase 3f: the tile mesh on card 0. The CLI encodes 9
+    frames of ``-p h264-nvenc`` with ``VCP_MESH=t`` and t copies of
+    ``cuda:0`` visible, t = 2 and 4: the P frames in t bands each (kernel
+    1 with row0), the gathered planes deblocked by ``deblock_general``
+    without the strong filter; the NAL units must equal the one-device
+    encode's (at sr 8 a band's search is the whole frame's). Then 5 frames
+    of the medium preset under CAVLC on 4 bands (sr 12, half-pel: kernel 2
+    with row0), equal to the one-device encode with the exhaustive search
+    (``VCP_HIER_ME=0``). The 4-band speed MP4 is decoded by the host
+    decoder. With more than one card the speed path also runs over the
+    cards themselves."""
+    speed = frames[:MESH_FRAMES]
+    n_p = len(speed) - 1
+    one_dev = ("motion_search", "deblock_fast", "deblock_general")
+    run_main_path("mesh-1dev", speed, tmp, ["-p", "h264-nvenc"], [0],
+                  one_dev)
+    for n_tile in MESH_TILES:
+        by_path[f"mesh-t{n_tile}"], _ = _mesh_path(
+            f"mesh-t{n_tile}", speed, tmp, ["-p", "h264-nvenc"], n_tile,
+            {"motion_search": n_p * n_tile, "motion_search_only": 0,
+             "deblock_fast": 0, "deblock_general": 1,
+             "deblock_general_no_strong": n_p}, "mesh-1dev")
+    # the one-device encode again, so that neither side has the warm-up
+    run_main_path("mesh-1dev-after", speed, tmp, ["-p", "h264-nvenc"], [0],
+                  one_dev)
+    wall_1dev = (WALL_S["mesh-1dev"] + WALL_S["mesh-1dev-after"]) / 2
+    log("  mesh fps against the one-device encode (the mean of its walls "
+        "before and after): " + ", ".join(
+            f"t={t} {wall_1dev / WALL_S[f'mesh-t{t}']:.3f}x"
+            for t in MESH_TILES))
+    check_decoder(os.path.join(tmp, f"mesh-t{MESH_TILES[-1]}.mp4"), speed)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        tiles = max(t for t in range(2, n_cards + 1) if (HP // 16) % t == 0)
+        by_path["mesh-cards"], _ = _mesh_path(
+            "mesh-cards", speed, tmp, ["-p", "h264-nvenc"], None,
+            {"motion_search": n_p * tiles, "motion_search_only": 0,
+             "deblock_fast": 0, "deblock_general": 1,
+             "deblock_general_no_strong": n_p * tiles}, "mesh-1dev")
+    else:
+        log("  one card visible: the bands of every mesh shared cuda:0 "
+            "(the branch over distinct cards needs two)")
+
+    q_cli = [f"--ffmpeg-args={MESH_Q_ARGS}"]
+    run_main_path("mesh-cavlc-1dev", bq, tmp, q_cli, [0],
+                  ("motion_search_only",),
+                  env={**MESH_Q_ENV, "VCP_HIER_ME": "0"})
+    by_path["mesh-cavlc-t4"], seen = _mesh_path(
+        "mesh-cavlc-t4", bq, tmp, q_cli, 4,
+        {"motion_search": 0, "motion_search_only": 4 * (len(bq) - 1),
+         "deblock_fast": 0, "deblock_general": 1,
+         "deblock_general_no_strong": len(bq) - 1}, "mesh-cavlc-1dev",
+        env=MESH_Q_ENV)
+    path = os.path.join(tmp, "mesh-cavlc-t4.mp4")
+    log(f"  mesh-cavlc-t4: MBs with a half-pel vector "
+        f"{seen.get('half_pel_mvs', 0)}; CAVLC: {cavlc_mp4(path)}; "
+        f"{WALL_S['mesh-cavlc-1dev'] / WALL_S['mesh-cavlc-t4']:.3f}x the "
+        "one-device fps")
+    if not seen.get("half_pel_mvs", 0) > 0 or not cavlc_mp4(path):
+        raise AssertionError("mesh-cavlc-t4: no half-pel vector, or not "
+                             "CAVLC")
+
+
+def check_devices_mesh(label: str, frames, ffargs: str, n_tile: int,
+                       env: dict | None = None) -> None:
+    """One GOP over a mesh of ``n_tile`` x cuda:0 and of ``n_tile`` x cpu:
+    the same NAL units and last recon."""
+    from vcp_tpu_torch.codec.args import parse_encode_args
+    from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
+    from vcp_tpu_torch.parallel.mesh import make_mesh
+    h, w = frames[0][0].shape
+    out, recon = {}, {}
+    with scoped_env(env):
+        for dev in (DEVICE, "cpu"):
+            cfg = EncoderConfig.from_params(parse_encode_args(ffargs), w, h,
+                                            30, 1)
+            enc = H264Encoder(cfg, device=dev)
+            mesh = make_mesh(n_tile, data=1, tile=n_tile,
+                             devices=[enc.device] * n_tile)
+            t0 = time.monotonic()
+            out[dev] = enc._encode_gop_mesh(frames, mesh)
+            recon[dev] = enc.recon_planes
+            log(f"  {label} mesh GOP ({len(frames)} frames, {n_tile} "
+                f"bands) on {dev}: {time.monotonic() - t0:.3f} s")
+    same = out[DEVICE] == out["cpu"]
+    same_recon = all(np.array_equal(a, b)
+                     for a, b in zip(recon[DEVICE], recon["cpu"]))
+    log(f"  {label}: NAL units {DEVICE} == cpu: {same}, last recon equal: "
+        f"{same_recon}")
+    if not (same and same_recon):
+        raise AssertionError(f"{label}: the mesh GOP differs between "
+                             f"{DEVICE} and cpu")
+
+
+def check_iframe_batch(frames) -> None:
+    """``encode_iframe_batch_sharded`` on 1080p frames over 4 x cuda:0 and
+    4 x cpu: the same recon planes."""
+    from vcp_tpu_torch.codec.h264.frame_ops import pad_plane
+    from vcp_tpu_torch.parallel.mesh import (encode_iframe_batch_sharded,
+                                             make_mesh)
+    planes = [np.stack([pad_plane(f[i], (16, 8, 8)[i])
+                        for f in frames[:MESH_BATCH]]) for i in range(3)]
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        mesh = make_mesh(devices=[torch.device(dev)] * MESH_BATCH)
+        t0 = time.monotonic()
+        got[dev] = [p.cpu() for p in encode_iframe_batch_sharded(
+            mesh, *planes, 26, 26)]
+        log(f"  intra batch of {MESH_BATCH} frames over mesh "
+            f"{mesh.shape} on {dev}: {time.monotonic() - t0:.3f} s")
+    same = all(torch.equal(a, b) for a, b in zip(got[DEVICE], got["cpu"]))
+    log(f"  intra batch {DEVICE} == cpu: {same}, shape "
+        f"{tuple(got['cpu'][0].shape)}")
+    if not same or got["cpu"][0].shape[0] != MESH_BATCH:
+        raise AssertionError("encode_iframe_batch_sharded differs between "
+                             f"{DEVICE} and cpu")
+
+
+def run_mesh_phase4(frames, bq) -> None:
+    """Phase 4 of the mesh paths: ``cuda == cpu`` on the two mesh GOPs (4
+    bands) and on the intra batch."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    check_devices_mesh("mesh-t4", frames[:MESH_FRAMES],
+                       BUILTIN_PRESETS["h264-nvenc"], 4)
+    check_devices_mesh("mesh-cavlc-t4", bq, MESH_Q_ARGS, 4, env=MESH_Q_ENV)
+    check_iframe_batch(frames)
+
+
+def run_mesh_only(frames, bq, t_start: float) -> int:
+    """``--mesh-only``: the band checks of phase 2, phase 3f and its
+    phase-4 checks and profile, for a short run after a change to the
+    mesh; prints no result."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    dev = torch.device("cuda", 0)
+    log("phase 2: the band form of the motion kernels at 1088x1920")
+    check_motion_bands(dev, HP, W)
+    by_path: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"phase 3f: the tile mesh ({time.monotonic() - t_start:.1f} s)")
+        run_mesh(tmp, frames, bq, by_path)
+    log(f"phase 4: mesh GOPs, cuda vs cpu ({time.monotonic() - t_start:.1f}"
+        " s)")
+    run_mesh_phase4(frames, bq)
+    log(f"phase 5: mesh GOP profile ({time.monotonic() - t_start:.1f} s)")
+    profile_gop("h264-nvenc", frames[:MESH_FRAMES],
+                BUILTIN_PRESETS["h264-nvenc"])
+    with mesh_on(4):
+        profile_gop("mesh-t4", frames[:MESH_FRAMES],
+                    BUILTIN_PRESETS["h264-nvenc"])
+    log(f"mesh phases done at {time.monotonic() - t_start:.1f} s; launches "
+        f"{by_path}")
+    print("mesh only: no result")
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: cuda vs cpu on one GOP of each path
 # ---------------------------------------------------------------------------
 
@@ -2356,12 +2648,19 @@ def main(argv: list[str]) -> int:
         return run_cavlc_only(synth_frames(H, W, CAVLC_FRAMES, CAVLC_FRAMES),
                               synth_frames_subpel(H, W, B_FRAMES, B_FRAMES),
                               t_start)
+    if "--mesh-only" in argv:
+        return run_mesh_only(synth_frames(H, W, MESH_FRAMES, MESH_FRAMES),
+                             synth_frames_subpel(H, W, B_FRAMES, B_FRAMES),
+                             t_start)
 
     log("phase 2: kernels vs plain versions at 1088x1920")
     rows = [*check_motion(dev, HP, W, reps=20),
             check_deblock_fast(dev, HP, W, reps=20),
             check_deblock_general(dev, HP, W, reps=20),
             check_deblock_general_no_strong(dev, HP, W, reps=20)]
+    bands = check_motion_bands(dev, HP, W)
+    for row in rows:
+        row.update(bands.get(row["name"], {}))
     torch.cuda.synchronize()
     for row in rows:
         log(f"  {row['name']}: {row['ms']:.4f} ms (plain "
@@ -2450,6 +2749,8 @@ def main(argv: list[str]) -> int:
         log("phase 3e: CAVLC and the I16 RD IDR "
             f"({time.monotonic() - t_start:.1f} s)")
         run_cavlc(tmp, frames, bq, by_path)
+        log(f"phase 3f: the tile mesh ({time.monotonic() - t_start:.1f} s)")
+        run_mesh(tmp, frames, bq, by_path)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")
@@ -2474,9 +2775,13 @@ def main(argv: list[str]) -> int:
     check_pyramid_pstep(qframes)
     for preset in ("h265-nvenc", "h265-cpu"):
         check_devices_hevc(preset, hframes[:3], BUILTIN_PRESETS[preset])
+    run_mesh_phase4(frames, bq)
     log("phase 5: device time of one GOP on cuda (torch.profiler; "
         f"{time.monotonic() - t_start:.1f} s)")
     profile_gop("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
+    with mesh_on(4):
+        profile_gop("mesh-t4", frames[:MESH_FRAMES],
+                    BUILTIN_PRESETS["h264-nvenc"])
     profile_gop("medium-bf0-exhaustive", qframes[:3], Q_ARGS, cpu_ops=False,
                 env={"VCP_HIER_ME": "0"})
     profile_gop("h264-cpu-exhaustive", bq[:4],

@@ -98,9 +98,9 @@ def t_server():
 
 
 class _Clock:
-    """time.time for the history writers: fixed, an hour ago."""
-    def __init__(self):
-        self.t = float(int(time.time()) - 3600)
+    """time.time for the history writers, fixed at ``t``."""
+    def __init__(self, t: float):
+        self.t = t
 
     def time(self):
         return self.t
@@ -141,9 +141,10 @@ def servers(miniredis, t_server, monkeypatch):
     for mod in (j_miniredis, t_miniredis):
         monkeypatch.setattr(mod, "_now_ms", lambda: NOW_MS)
     out = []
+    t0 = float(int(time.time()) - 3600)     # an hour ago, on both servers
     for srv in (miniredis, t_server):
         srv.engine.dbs.clear()
-        _seed(srv.address, monkeypatch, _Clock())
+        _seed(srv.address, monkeypatch, _Clock(t0))
         out.append(srv.address)
     return out
 

@@ -12,7 +12,13 @@ non-reference B pictures between them (``gop_ops.encode_bframe``),
 dispatched in decode order with each frame's entropy inputs packed into
 one int16 buffer on the device, then fetched and written in that order.
 ``encode_frame`` codes one frame at a time (IDR, then P pictures), with
-one device step and one slice writer per frame.
+one device step and one slice writer per frame. With more than one card
+(or ``VCP_MESH=N``) a GOP without B pictures, 8x8 transform or partitions
+goes over the tile mesh (``_encode_gop_mesh``, ``parallel.mesh``):
+horizontal bands of each P frame on the mesh's devices, a dense fetch.
+``VCP_TIMING=1`` logs one "gop timing" line per GOP, and
+``VCP_TRACE_DIR=<dir>`` runs ``encode_stream`` under ``torch.profiler``
+and writes its trace there.
 Every setting of ``EncoderConfig`` runs, as in ``vcp_tpu``: the speed
 shape (effort <= 4: full-pel ME, 4x4 transform, row-pattern I16 IDR),
 with or without B pictures, the quality shapes (efforts 5-9: pyramid or
@@ -184,11 +190,19 @@ class H264Encoder:
         # writers)
         self.stage_s = {"decode": 0.0, "idr": 0.0, "p": 0.0, "b": 0.0,
                         "fetch": 0.0, "entropy": 0.0}
+        # host seconds padding and packing source planes, a part of the
+        # idr / p / b dispatch stages (``VCP_TIMING``'s pack_ms)
+        self._pack_s = 0.0
+        self._last_p_data = None    # entropy input of encode_frame's last P
         self.rc = None
         if cfg.params is not None and cfg.params.rate_mode() == "abr":
             from .ratecontrol import RateController
             self.rc = RateController(cfg.params, cfg.width, cfg.height,
                                      cfg.fps_num / max(1, cfg.fps_den))
+
+    def headers_annexb(self) -> bytes:
+        """SPS and PPS as Annex-B NAL units (start codes included)."""
+        return headers.write_sps(self.sp) + headers.write_pps(self.pp)
 
     def sps_pps_raw(self) -> tuple[bytes, bytes]:
         """(sps, pps) NAL payloads incl. the NAL header byte, for avcC."""
@@ -197,9 +211,12 @@ class H264Encoder:
 
     def _pad(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
         from .frame_ops import pad_plane
-        return (pad_plane(np.asarray(y, np.uint8), 16),
-                pad_plane(np.asarray(u, np.uint8), 8),
-                pad_plane(np.asarray(v, np.uint8), 8))
+        t0 = time.perf_counter()
+        out = (pad_plane(np.asarray(y, np.uint8), 16),
+               pad_plane(np.asarray(u, np.uint8), 8),
+               pad_plane(np.asarray(v, np.uint8), 8))
+        self._pack_s += time.perf_counter() - t0
+        return out
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         arr = np.require(arr, requirements=("C", "W"))
@@ -211,10 +228,129 @@ class H264Encoder:
         ``cfg.bframes`` > 0 and more than two frames the GOP is coded as
         IDR + P anchors + B pictures in decode order, and each item gains
         a third element: the composition-time offset in frames (for the
-        MP4 ctts box)."""
+        MP4 ctts box). A GOP of more than one frame goes over the tile
+        mesh when ``_get_mesh`` gives one."""
+        t0 = time.perf_counter()
+        before = dict(self.stage_s, pack=self._pack_s)
+        if self.cfg.bframes > 0 and len(frames) > 2:
+            out = self._encode_gop_b(frames)
+        else:
+            mesh = self._get_mesh() if len(frames) > 1 else None
+            out = self._encode_gop_mesh(frames, mesh) if mesh is not None \
+                else self._encode_gop_p(frames)
+        if os.environ.get("VCP_TIMING") == "1":
+            self._log_timing(len(frames), time.perf_counter() - t0, before)
+        return out
+
+    def _log_timing(self, n_frames: int, total_s: float,
+                    before: dict) -> None:
+        """The "gop timing" line: the GOP's wall and its stage seconds
+        (pack: padding and packing the source on the host; dispatch: the
+        idr, p and b stages without the pack; fetch; entropy)."""
+        d = {k: v - before[k]
+             for k, v in dict(self.stage_s, pack=self._pack_s).items()}
+        dispatch = d["idr"] + d["p"] + d["b"] - d["pack"]
+        log.info("gop timing", frames=n_frames,
+                 total_ms=f"{total_s * 1e3:.1f}",
+                 pack_ms=f"{d['pack'] * 1e3:.1f}",
+                 dispatch_ms=f"{dispatch * 1e3:.1f}",
+                 fetch_ms=f"{d['fetch'] * 1e3:.1f}",
+                 entropy_ms=f"{d['entropy'] * 1e3:.1f}")
+
+    def _get_mesh(self):
+        """The tile mesh for a GOP, or None. ``VCP_MESH=0`` turns it off;
+        ``VCP_MESH=N`` asks for N devices, capped at the visible ones
+        (``parallel.mesh.visible_devices``); without it the mesh starts
+        only on ``cuda`` with more than one visible card. Only GOPs
+        without B pictures, 8x8 transform or partitions take it. The tile
+        count steps down until it divides the MB rows; fewer than 2 tiles
+        is no mesh (never a move to the CPU)."""
+        from ...parallel import mesh as meshmod
+        val = os.environ.get("VCP_MESH", "")
         cfg = self.cfg
-        if cfg.bframes > 0 and len(frames) > 2:
-            return self._encode_gop_b(frames)
+        if val == "0" or cfg.bframes > 0 or cfg.transform8 or cfg.parts:
+            return None
+        devs = meshmod.visible_devices(self.device)
+        n = len(devs)
+        if val.isdigit() and int(val) > 0:
+            want = int(val)
+        elif n > 1 and self.device.type == "cuda":
+            want = n
+        else:
+            return None
+        t = min(want, n)
+        while t > 1 and self.sp.mb_height % t:
+            t -= 1
+        if t < 2:
+            return None
+        return meshmod.make_mesh(t, data=1, tile=t, devices=devs)
+
+    def _encode_gop_mesh(self, frames: list, mesh) -> list[tuple]:
+        """A GOP without B pictures over the tile mesh: the IDR dense on
+        the encoder's device, each P chunk through
+        ``parallel.mesh.encode_pchunk_sharded`` (one stream), its packed
+        buffer fetched densely and split by ``gop_ops.unpack_frame``."""
+        from ...parallel import mesh as meshmod
+        cfg = self.cfg
+        off = self.pp.chroma_qp_index_offset
+        qp = self.rc.gop_qp() if self.rc else cfg.qp
+        qp_i = idr_qp(qp) if len(frames) > 1 else qp
+        qpc, qpc_i = chroma_qp(qp, off), chroma_qp(qp_i, off)
+        sr = search_range_for_effort(cfg.effort)
+        lam = lam_for_qp(qp)
+        subpel = subpel_for_effort(cfg.effort)
+        n_mby, n_mbx = self.sp.mb_height, self.sp.mb_width
+
+        t0 = time.perf_counter()
+        iout, ikeys = self._rd_or_row_iframe(
+            [self._upload(p) for p in self._pad(*frames[0])], qp_i, qpc_i)
+        recon = (iout["recon_y"], iout["recon_u"], iout["recon_v"])
+        t1 = time.perf_counter()
+        self.stage_s["idr"] += t1 - t0
+        idata = {k: iout[k].cpu().numpy() for k in ikeys}
+        t2 = time.perf_counter()
+        self.stage_s["fetch"] += t2 - t1
+        out: list[tuple[bytes, bool]] = [(entropy.write_islice(
+            self.sp, self.pp, frame_num=0,
+            idr_pic_id=self.idr_count % 65536, qp=qp_i, data=idata,
+            deblock=cfg.deblock, poc_lsb=0), True)]
+        self.idr_count += 1
+        self._frame_num = 1
+        self.stage_s["entropy"] += time.perf_counter() - t2
+
+        i = 1
+        while i < len(frames):
+            chunk = next(c for c in self.P_CHUNKS if c <= len(frames) - i)
+            t0 = time.perf_counter()
+            pads = [self._pad(*frames[i + k]) for k in range(chunk)]
+            planes = [np.stack([p[j] for p in pads])[None] for j in range(3)]
+            packed, ry, ru, rv = meshmod.encode_pchunk_sharded(
+                mesh, *planes, *(p[None] for p in recon), qp, qpc, sr=sr,
+                lam=lam, subpel=subpel, deblock=cfg.deblock)
+            recon = tuple(p[0].to(self.device).to(torch.uint8)
+                          for p in (ry, ru, rv))
+            t1 = time.perf_counter()
+            self.stage_s["p"] += t1 - t0
+            packed_h = packed[0].cpu().numpy()
+            t2 = time.perf_counter()
+            self.stage_s["fetch"] += t2 - t1
+            for k in range(chunk):
+                out.append((entropy.write_pslice(
+                    self.sp, self.pp, frame_num=self._frame_num, qp=qp,
+                    data=gop_ops.unpack_frame(packed_h[k], n_mby, n_mbx),
+                    deblock=cfg.deblock, poc_lsb=2 * len(out)), False))
+                self._frame_num += 1
+            self.stage_s["entropy"] += time.perf_counter() - t2
+            i += chunk
+        self._recon = recon
+        self.frame_index += len(frames)
+        if self.rc:
+            self.rc.update(len(frames), sum(len(nal) for nal, _ in out))
+        return out
+
+    def _encode_gop_p(self, frames: list) -> list[tuple]:
+        """IDR + P chunks on the encoder's device (see ``encode_gop``)."""
+        cfg = self.cfg
         qp = self.rc.gop_qp() if self.rc else cfg.qp
         qpc = chroma_qp(qp, self.pp.chroma_qp_index_offset)
         qp_i = idr_qp(qp) if len(frames) > 1 else qp
@@ -247,8 +383,10 @@ class H264Encoder:
         i = 1
         while i < len(frames):
             chunk = next(c for c in self.P_CHUNKS if c <= len(frames) - i)
-            buf = gop_ops.pack_frames(
-                [self._pad(*frames[i + k]) for k in range(chunk)])
+            pads = [self._pad(*frames[i + k]) for k in range(chunk)]
+            tp = time.perf_counter()
+            buf = gop_ops.pack_frames(pads)
+            self._pack_s += time.perf_counter() - tp
             bitmap, counts, meta, payload, ry, ru, rv = \
                 gop_ops.encode_pchunk_sparse(
                     self._upload(buf), *recon, qp, qpc, sr, lam, h16, w16,
@@ -380,6 +518,7 @@ class H264Encoder:
         if "intra" in out:
             keys += self.INTRA_P_KEYS
         data = {k: out[k].cpu().numpy() for k in keys}
+        self._last_p_data = data
         return out, entropy.write_pslice(
             self.sp, self.pp, frame_num=self._frame_num, qp=qp, data=data,
             deblock=cfg.deblock)
@@ -578,7 +717,31 @@ def encode_stream(frames, cfg: EncoderConfig, deadline: float | None = None,
     cts_offset) in streams with B pictures. Frames are grouped into GOPs at
     ``cfg.gop_size`` and at scene cuts; the deadline is checked between
     GOPs. The host seconds spent pulling frames from ``frames`` count
-    as the encoder's ``stage_s["decode"]``."""
+    as the encoder's ``stage_s["decode"]``.
+
+    Profiling: with ``VCP_TRACE_DIR=<dir>`` the whole encode runs under
+    ``torch.profiler`` (host operators, and the card's kernels and copies
+    on ``cuda``) and Kineto's JSON trace is written into ``dir``
+    (chrome://tracing, Perfetto)."""
+    trace_dir = os.environ.get("VCP_TRACE_DIR")
+    if not trace_dir:
+        return _encode_stream_inner(frames, cfg, deadline, on_frame, device)
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        result = _encode_stream_inner(frames, cfg, deadline, on_frame, device)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir,
+                        f"vcp_h264_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    log.info("trace written", path=path)
+    return result
+
+
+def _encode_stream_inner(frames, cfg: EncoderConfig, deadline, on_frame,
+                         device):
     enc = H264Encoder(cfg, device=device)
     samples = []
     gop: list = []

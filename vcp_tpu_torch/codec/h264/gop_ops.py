@@ -188,9 +188,10 @@ def _residual_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
             recon_y, recon_u, recon_v, nz4, t8_grid)
 
 
-def _search_mc_luma(cur_y, ref_y, sr: int, lam: int, subpel: int):
-    """Whole-frame motion search + luma MC against one reference. Returns
-    (mvq quarter-pel (nMBy, nMBx, 2), pred_y, mcu) where ``mcu(g)``
+def _search_mc_luma(cur_y, ref_y, sr: int, lam: int, subpel: int,
+                    row0: int | None = None):
+    """Motion search + luma MC against one reference. Returns (mvq
+    quarter-pel (nMBy, nMBx, 2), pred_y, mcu) where ``mcu(g)``
     motion-compensates one frame-uniform quarter-pel vector ``g`` (2,)
     against the same reference (the B step's dominant-MV candidates).
 
@@ -199,49 +200,63 @@ def _search_mc_luma(cur_y, ref_y, sr: int, lam: int, subpel: int):
     (wide windows, see ``use_hier_me``) or from the exhaustive
     search-only kernel, and refine them over the half-pel planes of the
     padded reference: to half-pel with the fused refine + MC (1), or to
-    quarter-pel with ``refine_subpel`` and the 16-case MC (2)."""
+    quarter-pel with ``refine_subpel`` and the 16-case MC (2).
+
+    ``row0`` None is the whole frame. An int makes ``cur_y`` the band of
+    MB rows that starts at frame row ``row0`` of the taller ``ref_y`` (the
+    tile mesh's step, ``parallel.mesh``); a band always takes the
+    exhaustive search, never the pyramid, whatever sr and VCP_HIER_ME say,
+    as ``vcp_tpu``'s traced band row does."""
     h, w = cur_y.shape
+    band = row0 is not None
+    r0 = row0 if band else 0
     if subpel == 0:
         mv_full, pred_y = motion_search(cur_y.contiguous(),
                                         ref_y.contiguous(), sr, lam,
-                                        with_pred=True)
+                                        with_pred=True, row0=r0)
         return mv_full * 4, pred_y, lambda g: mops.mc_luma(
             ref_y, torch.div(g, 4, rounding_mode="floor")
-            .expand(mv_full.shape), sr)
-    if use_hier_me(sr):
+            .expand(mv_full.shape), sr, r0)
+    if not band and use_hier_me(sr):
         mv_full = mops.hier_search(cur_y, ref_y, sr, lam)
     else:
         mv_full = motion_search(cur_y.contiguous(), ref_y.contiguous(),
-                                sr, lam, with_pred=False)
+                                sr, lam, with_pred=False, row0=r0)
     pad = sr + 6
     margin = pad - 3
     planes = torch.stack(mops.half_planes(
         mops.pad_edge(ref_y, pad, pad, pad, pad)))
     if subpel == 1:
-        mv, pred_y = mops.refine_half_mc(cur_y, planes, mv_full, lam, margin)
+        mv, pred_y = mops.refine_half_mc(cur_y, planes, mv_full, lam, margin,
+                                         row0=r0)
         return mv, pred_y, lambda g: mops.mc_luma_uniform(planes, g, margin,
-                                                          0, h, w)
+                                                          r0, h, w)
     mv = mops.refine_subpel(cur_y, planes, mv_full, lam, margin,
-                            quarter=True)
-    pred_y = mops.mc_luma_q(planes, mv, margin)
+                            quarter=True, row0=r0)
+    pred_y = mops.mc_luma_q(planes, mv, margin, r0)
     return mv, pred_y, lambda g: mops.mc_luma_q(
-        planes, g.expand(mv_full.shape), margin)
+        planes, g.expand(mv_full.shape), margin, r0)
 
 
-def _mc_chroma_pair(ref_u, ref_v, mv, sr: int, bs: int = 16):
-    return (mops.mc_chroma_q(ref_u, mv, sr // 2 + 2, bs=bs),
-            mops.mc_chroma_q(ref_v, mv, sr // 2 + 2, bs=bs))
+def _mc_chroma_pair(ref_u, ref_v, mv, sr: int, bs: int = 16,
+                    row0c: int = 0):
+    return (mops.mc_chroma_q(ref_u, mv, sr // 2 + 2, row0c, bs=bs),
+            mops.mc_chroma_q(ref_v, mv, sr // 2 + 2, row0c, bs=bs))
 
 
 def _pstep_core(cur_y, cur_u, cur_v, ref_y, ref_u, ref_v, qp: int,
                 qpc: int, sr: int, lam: int, subpel: int = 1,
-                t8: bool = False):
+                t8: bool = False, row0: int | None = None):
     """P step before deblocking. Returns (packed int16 (nMB * MB_WORDS,),
-    recon planes, nz4 grid, quarter-pel mv grid, t8 grid)."""
+    recon planes, nz4 grid, quarter-pel mv grid, t8 grid). With ``row0``
+    the ``cur_*`` planes are the band from frame row ``row0`` (chroma row
+    ``row0 // 2``) against the whole-frame references, and every output is
+    the band's (see ``_search_mc_luma``)."""
     h, w = cur_y.shape
     n_mby, n_mbx = h // 16, w // 16
-    mv, pred_y, _ = _search_mc_luma(cur_y, ref_y, sr, lam, subpel)
-    pred_u, pred_v = _mc_chroma_pair(ref_u, ref_v, mv, sr)
+    mv, pred_y, _ = _search_mc_luma(cur_y, ref_y, sr, lam, subpel, row0)
+    pred_u, pred_v = _mc_chroma_pair(ref_u, ref_v, mv, sr,
+                                     row0c=(row0 or 0) // 2)
     (z_luma, cb_dc, cb_ac, cr_dc, cr_ac,
      recon_y, recon_u, recon_v, nz4, t8g) = _residual_recon(
         cur_y, cur_u, cur_v, pred_y, pred_u, pred_v, qp, qpc, t8=t8)
@@ -643,4 +658,31 @@ def unpack_sparse_chunk(bitmap_h: np.ndarray, meta_h: np.ndarray,
         if t8.any():
             d["t8"] = t8
         out.append(d)
+    return out
+
+
+def unpack_frame(packed: np.ndarray, n_mby: int, n_mbx: int) -> dict:
+    """Split one frame's dense packed int16 buffer (the tile mesh's fetch)
+    back into the slice writer's arrays, views where possible."""
+    arr = packed.reshape(n_mby, n_mbx, MB_WORDS)
+    o = 0
+
+    def take(n):
+        nonlocal o
+        out = arr[..., o:o + n]
+        o += n
+        return out
+
+    mv = take(2).astype(np.int32)
+    cb_dc = take(4)
+    cr_dc = take(4)
+    t8 = take(1)[..., 0].astype(bool)
+    take(1)                                  # pad word
+    luma = take(256).reshape(n_mby, n_mbx, 16, 16)
+    cb_ac = take(64).reshape(n_mby, n_mbx, 4, 16)
+    cr_ac = take(64).reshape(n_mby, n_mbx, 4, 16)
+    out = {"mv": mv, "luma": luma, "cb_dc": cb_dc, "cb_ac": cb_ac,
+           "cr_dc": cr_dc, "cr_ac": cr_ac}
+    if t8.any():
+        out["t8"] = t8
     return out

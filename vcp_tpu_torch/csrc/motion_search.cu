@@ -13,6 +13,13 @@
 // whose caller interpolates a sub-pel prediction itself, writes the
 // vectors alone.
 //
+// Band form (the tile mesh, vcp_tpu/parallel/mesh.py): cur may be a
+// horizontal band of h rows that starts at frame row row0 of a reference
+// h_ref rows tall; the window rows are read at clamp(row0 + y, 0,
+// h_ref - 1), the vectors and the prediction are the band's (equal to
+// motion.full_search / mc_luma with row0). The whole frame is row0 = 0,
+// h_ref = h.
+//
 // What bounds it on this card (an H100; tools/probe_motion.py measures
 // it, PERF.md keeps the numbers): not bytes, but the issue rate of the
 // absolute differences. Of the exact sequences, vabsdiff4 with add is the
@@ -135,9 +142,9 @@ __host__ __device__ inline size_t strip_smem_bytes(int n, int sr, int ws) {
 template <bool kPred, int K>
 __global__ void __launch_bounds__(kMaxThreads)
 motion_search_strip(const int32_t* __restrict__ cur,
-                    const int32_t* __restrict__ ref, int h, int w, int sr,
-                    int lam, int n, int32_t* __restrict__ mv,
-                    int32_t* __restrict__ pred) {
+                    const int32_t* __restrict__ ref, int w, int h_ref,
+                    int row0, int sr, int lam, int n,
+                    int32_t* __restrict__ mv, int32_t* __restrict__ pred) {
     constexpr int kWords = K / 4 + 4;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     unsigned long long* best = reinterpret_cast<unsigned long long*>(smem_raw);
@@ -159,9 +166,10 @@ motion_search_strip(const int32_t* __restrict__ cur,
     if (tid < kMaxStrip) best[tid] = ~0ull;
     unsigned bad = 0;
     // The current MBs (16 rows of cw words) and the window (wrows rows of
-    // ws words, coordinates clamped to the plane: the edge padding), four
-    // samples to a word. A thread issues kBatch loads before it waits for
-    // any: a block's loads are a few round trips to L2, not one per word.
+    // ws words from reference row row0 + y0 - sr on, coordinates clamped
+    // to the reference plane: the edge padding), four samples to a word.
+    // A thread issues kBatch loads before it waits for any: a block's
+    // loads are a few round trips to L2, not one per word.
     // A word whose samples lie inside the plane is one 16-byte load when
     // the window starts on a multiple of four samples.
     const int cw = 4 * n;
@@ -180,8 +188,8 @@ motion_search_strip(const int32_t* __restrict__ cur,
                         cur + (size_t)(y0 + r) * w + x0 + 4 * c));
             } else if (i < n_all) {
                 const int r = (i - n_cur) / ws, c = i - n_cur - r * ws;
-                const int32_t* row =
-                    ref + (size_t)min(max(y0 - sr + r, 0), h - 1) * w;
+                const int32_t* row = ref
+                    + (size_t)min(max(row0 + y0 - sr + r, 0), h_ref - 1) * w;
                 const int xb = x0 - sr + 4 * c;
                 if (aligned && xb >= 0 && xb + 4 <= w) {
                     v[u] = __ldg(reinterpret_cast<const int4*>(row + xb));
@@ -295,11 +303,10 @@ inline long item_instrs(int k) {
 // per block, the items (rounded up to whole rounds of the block) times
 // the instructions of an item, plus about 16 instructions a window word
 // to load and pack. (A model that also counted waves of resident blocks
-// chose slower plans: see PERF.md.)
-Plan plan_strip(int h, int w, int sr) {
-    int dev = 0, nsm = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+// chose slower plans: see PERF.md.) nsm is the SM count of the card the
+// launch goes to, which the caller passes: the device that happens to be
+// current need not be that card.
+Plan plan_strip(int h, int w, int sr, int nsm) {
     const int side = 2 * sr + 1, n_mby = h / 16, n_mbx = w / 16;
     Plan best{0, 0, 0, 0};
     long best_cost = LONG_MAX;
@@ -326,15 +333,15 @@ Plan plan_strip(int h, int w, int sr) {
 
 template <bool kPred>
 void launch_strip(const Plan& p, const int32_t* cur, const int32_t* ref,
-                  int h, int w, int sr, int lam, int32_t* mv, int32_t* pred,
-                  cudaStream_t stream) {
+                  int h, int w, int h_ref, int row0, int sr, int lam,
+                  int32_t* mv, int32_t* pred, cudaStream_t stream) {
     dim3 grid((w / 16 + p.n - 1) / p.n, h / 16);
     auto kernel = p.k == 12 ? motion_search_strip<kPred, 12>
         : p.k == 16 ? motion_search_strip<kPred, 16>
         : p.k == 20 ? motion_search_strip<kPred, 20>
         : motion_search_strip<kPred, 28>;
-    kernel<<<grid, p.threads, p.smem, stream>>>(cur, ref, h, w, sr, lam, p.n,
-                                                 mv, pred);
+    kernel<<<grid, p.threads, p.smem, stream>>>(cur, ref, w, h_ref, row0, sr,
+                                                 lam, p.n, mv, pred);
 }
 
 // --------------------------------------------------------------------------
@@ -440,36 +447,41 @@ const char* vcp_error_string(int err) {
 // vcp_motion_search with a given plan (run length k of 12, 16, 20 or 28,
 // n MBs per block, threads per block); for the probe's sweep of plans.
 int vcp_motion_search_planned(const int32_t* cur, const int32_t* ref, int h,
-                              int w, int sr, int lam, int32_t* mv,
-                              int32_t* pred, int k, int n, int threads,
-                              void* stream) {
+                              int w, int h_ref, int row0, int sr, int lam,
+                              int32_t* mv, int32_t* pred, int k, int n,
+                              int threads, void* stream) {
     const int nruns = (2 * sr + 1 + k - 1) / k;
     const Plan p{k, n, threads,
                  strip_smem_bytes(n, sr, window_words(n, k, nruns))};
     cudaStream_t s = (cudaStream_t)stream;
     if (pred != nullptr)
-        launch_strip<true>(p, cur, ref, h, w, sr, lam, mv, pred, s);
+        launch_strip<true>(p, cur, ref, h, w, h_ref, row0, sr, lam, mv, pred,
+                           s);
     else
-        launch_strip<false>(p, cur, ref, h, w, sr, lam, mv, nullptr, s);
+        launch_strip<false>(p, cur, ref, h, w, h_ref, row0, sr, lam, mv,
+                            nullptr, s);
     return (int)cudaGetLastError();
 }
 
-// cur, ref: (h, w) int32 device planes (h, w multiples of 16, samples
-// 0..255, 16-byte aligned); mv out: (h/16, w/16, 2) int32 [dy, dx]; pred
-// out (h, w) int32, or null for the search-only kernel. Returns
+// cur: (h, w) int32 device band from frame row row0 of ref: (h_ref, w)
+// (h, w, row0 multiples of 16, row0 + h <= h_ref, samples 0..255, 16-byte
+// aligned; the whole frame is row0 = 0, h_ref = h); mv out: (h/16, w/16,
+// 2) int32 [dy, dx]; pred out (h, w) int32, or null for the search-only
+// kernel; nsm: the SM count of the card of `stream`. Returns
 // cudaGetLastError() after the launch.
 int vcp_motion_search(const int32_t* cur, const int32_t* ref, int h, int w,
-                      int sr, int lam, int32_t* mv, int32_t* pred,
-                      void* stream) {
-    const Plan p = plan_strip(h, w, sr);
-    return vcp_motion_search_planned(cur, ref, h, w, sr, lam, mv, pred, p.k,
-                                     p.n, p.threads, stream);
+                      int h_ref, int row0, int sr, int lam, int32_t* mv,
+                      int32_t* pred, int nsm, void* stream) {
+    const Plan p = plan_strip(h, w, sr, nsm);
+    return vcp_motion_search_planned(cur, ref, h, w, h_ref, row0, sr, lam, mv,
+                                     pred, p.k, p.n, p.threads, stream);
 }
 
-// The plan vcp_motion_search launches for a shape and range: out[0..3] =
-// run length K, MBs per block, threads per block, dynamic shared bytes.
-void vcp_motion_search_plan(int h, int w, int sr, int* out) {
-    const Plan p = plan_strip(h, w, sr);
+// The plan vcp_motion_search launches for a shape and range on a card of
+// nsm SMs: out[0..3] = run length K, MBs per block, threads per block,
+// dynamic shared bytes.
+void vcp_motion_search_plan(int h, int w, int sr, int nsm, int* out) {
+    const Plan p = plan_strip(h, w, sr, nsm);
     out[0] = p.k;
     out[1] = p.n;
     out[2] = p.threads;

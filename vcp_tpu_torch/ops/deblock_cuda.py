@@ -12,7 +12,9 @@ output planes (the kernel writes every sample of them) and the zeroed
 progress counters the kernel's blocks synchronise through. Each wrapper's
 ``launches`` counts its calls that launched the kernel;
 ``deblock_general`` counts its ``strong=False`` instantiation apart, in
-``launches_no_strong``.
+``launches_no_strong``. Every launch is made on the device of its planes
+(the current device may be another card), and the scratch is allocated
+there, per call.
 
 ``deblock_fast_diag`` and ``deblock_general_diag`` run the earlier design
 (one grid launch per wavefront diagonal) of the same source. They are an
@@ -114,14 +116,15 @@ def deblock_fast(y, u, v, bs_v, bs_h, scal):
         return deblock_fast_plain(y, u, v, bs_v, bs_h, scal)
     h, w, scal_host = _check_fast(y, u, v, bs_v, bs_h, scal)
     y, u, v = _aligned(y, u, v)
-    yo, uo, vo, progress = _outputs(y, u, v)
-    lib = _lib()
-    err = lib.vcp_deblock_fast(
-        devmod.ptr(y), devmod.ptr(u), devmod.ptr(v),
-        devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
-        devmod.ptr(bs_v), devmod.ptr(bs_h), scal_host,
-        devmod.ptr(progress), devmod.stream_ptr(y))
-    devmod.check_launch(lib, err, "deblock_fast")
+    with torch.cuda.device(y.device):
+        yo, uo, vo, progress = _outputs(y, u, v)
+        lib = _lib()
+        err = lib.vcp_deblock_fast(
+            devmod.ptr(y), devmod.ptr(u), devmod.ptr(v),
+            devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
+            devmod.ptr(bs_v), devmod.ptr(bs_h), scal_host,
+            devmod.ptr(progress), devmod.stream_ptr(y))
+        devmod.check_launch(lib, err, "deblock_fast")
     deblock_fast.launches += 1
     return yo, uo, vo
 
@@ -137,15 +140,16 @@ def deblock_general(y, u, v, vthr, hthr, cvthr, chthr, strong: bool = True):
     h, w = _check_general(y, u, v, vthr, hthr, cvthr, chthr)
     y, u, v, vthr, hthr, cvthr, chthr = _aligned(y, u, v, vthr, hthr, cvthr,
                                                  chthr)
-    yo, uo, vo, progress = _outputs(y, u, v)
-    lib = _lib()
-    err = lib.vcp_deblock_general(
-        devmod.ptr(y), devmod.ptr(u), devmod.ptr(v),
-        devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
-        devmod.ptr(vthr), devmod.ptr(hthr), devmod.ptr(cvthr),
-        devmod.ptr(chthr), devmod.ptr(progress), 1 if strong else 0,
-        devmod.stream_ptr(y))
-    devmod.check_launch(lib, err, "deblock_general")
+    with torch.cuda.device(y.device):
+        yo, uo, vo, progress = _outputs(y, u, v)
+        lib = _lib()
+        err = lib.vcp_deblock_general(
+            devmod.ptr(y), devmod.ptr(u), devmod.ptr(v),
+            devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
+            devmod.ptr(vthr), devmod.ptr(hthr), devmod.ptr(cvthr),
+            devmod.ptr(chthr), devmod.ptr(progress), 1 if strong else 0,
+            devmod.stream_ptr(y))
+        devmod.check_launch(lib, err, "deblock_general")
     if strong:
         deblock_general.launches += 1
     else:
@@ -159,11 +163,13 @@ def deblock_fast_diag(y, u, v, bs_v, bs_h, scal):
     copies of the planes."""
     h, w, scal_host = _check_fast(y, u, v, bs_v, bs_h, scal)
     yo, uo, vo = y.clone(), u.clone(), v.clone()
-    lib = _lib()
-    err = lib.vcp_deblock_fast_diag(
-        devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
-        devmod.ptr(bs_v), devmod.ptr(bs_h), scal_host, devmod.stream_ptr(y))
-    devmod.check_launch(lib, err, "deblock_fast_diag")
+    with torch.cuda.device(y.device):
+        lib = _lib()
+        err = lib.vcp_deblock_fast_diag(
+            devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
+            devmod.ptr(bs_v), devmod.ptr(bs_h), scal_host,
+            devmod.stream_ptr(y))
+        devmod.check_launch(lib, err, "deblock_fast_diag")
     return yo, uo, vo
 
 
@@ -173,12 +179,13 @@ def deblock_general_diag(y, u, v, vthr, hthr, cvthr, chthr,
     tensors only)."""
     h, w = _check_general(y, u, v, vthr, hthr, cvthr, chthr)
     yo, uo, vo = y.clone(), u.clone(), v.clone()
-    lib = _lib()
-    err = lib.vcp_deblock_general_diag(
-        devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
-        devmod.ptr(vthr), devmod.ptr(hthr), devmod.ptr(cvthr),
-        devmod.ptr(chthr), 1 if strong else 0, devmod.stream_ptr(y))
-    devmod.check_launch(lib, err, "deblock_general_diag")
+    with torch.cuda.device(y.device):
+        lib = _lib()
+        err = lib.vcp_deblock_general_diag(
+            devmod.ptr(yo), devmod.ptr(uo), devmod.ptr(vo), h, w,
+            devmod.ptr(vthr), devmod.ptr(hthr), devmod.ptr(cvthr),
+            devmod.ptr(chthr), 1 if strong else 0, devmod.stream_ptr(y))
+        devmod.check_launch(lib, err, "deblock_general_diag")
     return yo, uo, vo
 
 

@@ -228,7 +228,7 @@ def plan_sweep(dev, h: int, w: int, with_pred: bool, sr: int, lam: int):
     fn = lib.vcp_motion_search_planned
     c_int, vp = ctypes.c_int, ctypes.c_void_p
     fn.restype = c_int
-    fn.argtypes = [vp, vp] + [c_int] * 4 + [vp, vp] + [c_int] * 3 + [vp]
+    fn.argtypes = [vp, vp] + [c_int] * 6 + [vp, vp] + [c_int] * 3 + [vp]
     cur, ref = test_planes(dev, h, w)
     mv = torch.empty((h // 16, w // 16, 2), dtype=torch.int32, device=dev)
     pred = torch.empty_like(cur) if with_pred else None
@@ -241,7 +241,7 @@ def plan_sweep(dev, h: int, w: int, with_pred: bool, sr: int, lam: int):
 
             def launch():
                 devmod.check_launch(lib, fn(
-                    devmod.ptr(cur), devmod.ptr(ref), h, w, sr, lam,
+                    devmod.ptr(cur), devmod.ptr(ref), h, w, h, 0, sr, lam,
                     devmod.ptr(mv), devmod.ptr(pred), k, n, threads,
                     devmod.stream_ptr(cur)), "motion_search_planned")
             launch()
@@ -270,9 +270,10 @@ def build_phase_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     c_int, vp = ctypes.c_int, ctypes.c_void_p
     lib.vcp_motion_search.restype = c_int
-    lib.vcp_motion_search.argtypes = [vp, vp] + [c_int] * 4 + [vp] * 3
+    lib.vcp_motion_search.argtypes = \
+        [vp, vp] + [c_int] * 6 + [vp, vp, c_int, vp]
     lib.vcp_motion_probe_buffer.argtypes = [vp]
-    lib.vcp_motion_search_plan.argtypes = [c_int] * 3 + [vp]
+    lib.vcp_motion_search_plan.argtypes = [c_int] * 4 + [vp]
     return lib
 
 
@@ -283,7 +284,8 @@ def phases(lib, dev, h: int, w: int, with_pred: bool, sr: int,
     per SM, and the SM cycles of a block's loads, search and end (the
     atomics' barrier, the vectors and the prediction)."""
     plan = (ctypes.c_int * 4)()
-    lib.vcp_motion_search_plan(h, w, sr, plan)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib.vcp_motion_search_plan(h, w, sr, n_sm, plan)
     n_blocks = (h // 16) * -(-(w // 16) // plan[1])
     buf = torch.zeros(7 * n_blocks, dtype=torch.int64, device=dev)
     lib.vcp_motion_probe_buffer(devmod.ptr(buf))
@@ -292,8 +294,9 @@ def phases(lib, dev, h: int, w: int, with_pred: bool, sr: int,
     pred = torch.empty_like(cur) if with_pred else None
     for _ in range(3):          # the last launch's clocks are kept
         devmod.check_launch(lib, lib.vcp_motion_search(
-            devmod.ptr(cur), devmod.ptr(ref), h, w, sr, lam, devmod.ptr(mv),
-            devmod.ptr(pred), devmod.stream_ptr(cur)), "probe launch")
+            devmod.ptr(cur), devmod.ptr(ref), h, w, h, 0, sr, lam,
+            devmod.ptr(mv), devmod.ptr(pred), n_sm, devmod.stream_ptr(cur)),
+            "probe launch")
     torch.cuda.synchronize()
     lib.vcp_motion_probe_buffer(None)
     rec = buf.reshape(n_blocks, 7).cpu()
@@ -355,7 +358,7 @@ def main(argv: list[str]) -> int:
             print(json.dumps({
                 "kernel": name, "shape": [h, w], "sr": sr, "lam": lam,
                 "equal_to_reference": same, "ms": ms, "ref_ms": ref_ms,
-                "plan": motion_cuda.launch_plan(h, w, sr),
+                "plan": motion_cuda.launch_plan(h, w, sr, dev),
                 "po_per_sm_clock": per_sm_clock(
                     work(h, w, sr) / (ms * 1e-3), n_sm,
                     clocks["under_load"]),
