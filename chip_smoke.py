@@ -101,12 +101,29 @@ frames between ``cuda`` and ``cpu``; phase 5 profiles the mesh GOP at t
 = 4. With more than one card the speed path also runs over the cards
 themselves.
 
+Phase 3g runs what crosses the bus: the delta upload (only the 16x16
+source tiles that changed) and the sparse fetches, the defaults, each
+beside ``VCP_DELTA=0`` (and ``VCP_SPARSE_B=0``) on the same frames, with
+equal NAL units: ``-p h264-nvenc`` on 40 frames of 1080p where only a
+256x256 box moves over a fixed background (a scene cut at 24 inverts
+the background), ``-c:v h264_nvenc -preset p4 -bf 2 -g 5`` on 10 of
+them (two B GOPs) and ``-p h264-nvenc`` on 9 frames of the speed path's
+content, where every tile changes. Each runs under a device-only
+profiler, and the H2D and D2H bytes come from the memcpy events of its
+Kineto trace: a P chunk is one upload and one fetch (one more when it
+overflows its caps); a P frame of the static content uploads at most a
+tenth of the dense bytes, one of the changing content at most 2 % more.
+Phase 4 holds two consecutive 3-frame GOPs of the static content (the
+second IDR a delta) between ``cuda`` and ``cpu``, and phase 5 profiles
+its 9-frame GOP with the delta upload and without.
+
 It checks each MP4 (with the composition offsets of B streams), checks
 that the quality paths used the tools they add (quarter-pel vectors on
 the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
 and holds it against the synthetic source, checks that a GOP's NAL
 units and the last recon are identical between ``cuda`` and ``cpu``
-(plain versions) on the speed path, the quality path without B pictures,
+(plain versions, the cpu sides in three child processes beside the
+card's) on the speed path, the quality path without B pictures,
 a B GOP of ``h264-cpu``, a B GOP of ``h264-nvenc-hq`` with
 ``VCP_HIER_ME=0`` (the search-only kernel at +-16 on both B lists), the
 B GOP of phase 3e's CAVLC ``h264-cpu`` with ``VCP_HIER_ME=0``, and the
@@ -121,7 +138,9 @@ after a kernel change), ``--hevc-only`` runs the HEVC phases alone (the
 hq path from 12 frames); neither prints a result line.
 ``--cavlc-only`` runs phase 3e and its phase-4 GOP alone and prints no
 result; ``--mesh-only`` runs the band checks of phase 2, phase 3f and
-its phase-4 and phase-5 work and prints no result. ``--control-only`` runs phase 3d alone on a fresh 40-frame Y4M
+its phase-4 and phase-5 work and prints no result; so does
+``--bus-only`` for phase 3g. ``--control-only`` runs phase 3d alone on a
+fresh 40-frame Y4M
 and its own MP4 + AAC and ends with the same last line. Imports nothing of JAX
 or of ``vcp_tpu``.
 """
@@ -2236,37 +2255,6 @@ def run_mesh(tmp: str, frames, bq, by_path: dict) -> None:
                              "CAVLC")
 
 
-def check_devices_mesh(label: str, frames, ffargs: str, n_tile: int,
-                       env: dict | None = None) -> None:
-    """One GOP over a mesh of ``n_tile`` x cuda:0 and of ``n_tile`` x cpu:
-    the same NAL units and last recon."""
-    from vcp_tpu_torch.codec.args import parse_encode_args
-    from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
-    from vcp_tpu_torch.parallel.mesh import make_mesh
-    h, w = frames[0][0].shape
-    out, recon = {}, {}
-    with scoped_env(env):
-        for dev in (DEVICE, "cpu"):
-            cfg = EncoderConfig.from_params(parse_encode_args(ffargs), w, h,
-                                            30, 1)
-            enc = H264Encoder(cfg, device=dev)
-            mesh = make_mesh(n_tile, data=1, tile=n_tile,
-                             devices=[enc.device] * n_tile)
-            t0 = time.monotonic()
-            out[dev] = enc._encode_gop_mesh(frames, mesh)
-            recon[dev] = enc.recon_planes
-            log(f"  {label} mesh GOP ({len(frames)} frames, {n_tile} "
-                f"bands) on {dev}: {time.monotonic() - t0:.3f} s")
-    same = out[DEVICE] == out["cpu"]
-    same_recon = all(np.array_equal(a, b)
-                     for a, b in zip(recon[DEVICE], recon["cpu"]))
-    log(f"  {label}: NAL units {DEVICE} == cpu: {same}, last recon equal: "
-        f"{same_recon}")
-    if not (same and same_recon):
-        raise AssertionError(f"{label}: the mesh GOP differs between "
-                             f"{DEVICE} and cpu")
-
-
 def check_iframe_batch(frames) -> None:
     """``encode_iframe_batch_sharded`` on 1080p frames over 4 x cuda:0 and
     4 x cpu: the same recon planes."""
@@ -2291,13 +2279,23 @@ def check_iframe_batch(frames) -> None:
                              f"{DEVICE} and cpu")
 
 
-def run_mesh_phase4(frames, bq) -> None:
-    """Phase 4 of the mesh paths: ``cuda == cpu`` on the two mesh GOPs (4
-    bands) and on the intra batch."""
+def mesh_phase4_jobs(frames, bq) -> dict:
+    """Phase 4 of the mesh paths: the two mesh GOPs on 4 bands, {label:
+    (fn, args)} for ``compare_devices``."""
     from vcp_tpu_torch.config import BUILTIN_PRESETS
-    check_devices_mesh("mesh-t4", frames[:MESH_FRAMES],
-                       BUILTIN_PRESETS["h264-nvenc"], 4)
-    check_devices_mesh("mesh-cavlc-t4", bq, MESH_Q_ARGS, 4, env=MESH_Q_ENV)
+    return {"mesh-t4": (mesh_gop_on, (frames[:MESH_FRAMES],
+                                      BUILTIN_PRESETS["h264-nvenc"], 4)),
+            "mesh-cavlc-t4": (mesh_gop_on, (bq, MESH_Q_ARGS, 4,
+                                            MESH_Q_ENV))}
+
+
+def run_mesh_phase4(frames, bq, refs: dict | None = None) -> None:
+    """Phase 4 of the mesh paths: ``cuda == cpu`` on the two mesh GOPs (4
+    bands) and on the intra batch; ``refs`` the futures of their cpu
+    sides, or None to run those here."""
+    for label, (fn, args) in mesh_phase4_jobs(frames, bq).items():
+        compare_devices(label, "mesh GOP", fn, args,
+                        (refs or {}).get(label))
     check_iframe_batch(frames)
 
 
@@ -2329,56 +2327,478 @@ def run_mesh_only(frames, bq, t_start: float) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3g: the bus
+# ---------------------------------------------------------------------------
+
+BUS_FRAMES = 40              # 1080p frames of bus-nvenc: IDRs at 0 and 24
+BUS_CUT = 24                 # the background inverts here (a scene cut)
+BUS_BOX = 256                # side of the moving box (luma pixels)
+BUS_STEP = 8                 # its motion a frame (pixels across)
+BUS_B_FRAMES = 10            # bus-bf2: two B GOPs of 5 (-g 5)
+BUS_B_ARGS = ("-c:v h264_nvenc -preset p4 -bf 2 -g 5 -b:v 10M "
+              "-movflags +faststart")
+BUS_SYNTH_FRAMES = 9         # synth_frames content: IDR + a chunk of 8 P
+BUS_DENSE = {"VCP_DELTA": "0", "VCP_SPARSE_B": "0"}
+
+
+def synth_frames_static(h: int, w: int, n: int, cut: int, seed: int = 2):
+    """A fixed textured background and a textured 256x256 box moving 8 px
+    a frame across it (17 x 17 MBs change a frame), no noise; the
+    background inverted from frame ``cut`` on (a scene cut)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cy, cx = np.mgrid[0:h // 2, 0:w // 2].astype(np.float32)
+    bg = [100 + 45 * np.sin(xx / 13.0) * np.cos(yy / 17.0)
+          + rng.integers(-20, 21, (h, w)),
+          128 + 25 * np.sin(cx / 11.0), 128 + 25 * np.cos(cy / 9.0)]
+    bg = [np.clip(p, 0, 255).astype(np.uint8) for p in bg]
+    by, bx = np.mgrid[0:BUS_BOX, 0:BUS_BOX].astype(np.float32)
+    box = [180 + 50 * np.sin(bx / 5.0) * np.cos(by / 7.0)
+           + rng.integers(-15, 16, (BUS_BOX, BUS_BOX)),
+           90 + rng.integers(-10, 11, (BUS_BOX // 2, BUS_BOX // 2)),
+           170 + rng.integers(-10, 11, (BUS_BOX // 2, BUS_BOX // 2))]
+    box = [np.clip(p, 0, 255).astype(np.uint8) for p in box]
+    frames = []
+    for t in range(n):
+        planes = [255 - p if t >= cut else p.copy() for p in bg]
+        x, y = 64 + BUS_STEP * t, 300           # y: not on an MB row
+        for k, (p, b) in enumerate(zip(planes, box)):
+            d = 2 if k else 1
+            p[y // d:y // d + b.shape[0], x // d:x // d + b.shape[1]] = b
+        frames.append(tuple(planes))
+    return frames
+
+
+@contextlib.contextmanager
+def observe_bus(seen: dict):
+    """While active, record without changing anything each P chunk's
+    upload (frames, bytes of the device tensors its one upload made: the
+    dense chunk buffer, or the delta's indices and tiles) and whether
+    each P chunk's fetch overflowed its caps (a tail fetch)."""
+    from vcp_tpu_torch.codec.h264 import gop_ops
+    real = (gop_ops.encode_pchunk_delta, gop_ops.encode_pchunk_sparse,
+            gop_ops.split_fetch)
+
+    def delta(sy, su, sv, idx, tiles, *a, **kw):
+        seen.setdefault("p_uploads", []).append(
+            (idx.shape[0], idx.nbytes + tiles.nbytes))
+        return real[0](sy, su, sv, idx, tiles, *a, **kw)
+
+    def dense(buf, *a, **kw):
+        seen.setdefault("p_uploads", []).append((buf.shape[0], buf.nbytes))
+        return real[1](buf, *a, **kw)
+
+    def split(arr, f, n_mb, mcap, pcap):
+        out = real[2](arr, f, n_mb, mcap, pcap)
+        seen.setdefault("p_tails", []).append(
+            out[0] > mcap or out[1] > pcap)
+        return out
+
+    (gop_ops.encode_pchunk_delta, gop_ops.encode_pchunk_sparse,
+     gop_ops.split_fetch) = delta, dense, split
+    try:
+        yield seen
+    finally:
+        (gop_ops.encode_pchunk_delta, gop_ops.encode_pchunk_sparse,
+         gop_ops.split_fetch) = real
+
+
+# host-to-device copies that no encode makes: they open and close the
+# recorded window of a device profile
+SENTINEL_BYTES = (4093, 4091)
+SENTINEL_GAP_S = 0.25
+# tiny launches before the opening sentinel: the first few device events
+# of a recorded window can be missing from its trace, so these take the
+# loss
+PREROLL_LAUNCHES = 1000
+
+
+@contextlib.contextmanager
+def device_profile(cpu_ops: bool = False):
+    """``torch.profiler`` over the body (the card's activity; with
+    ``cpu_ops`` the host operators too). The recorded window starts with
+    PREROLL_LAUNCHES tiny kernels, then a sentinel copy opens the body's
+    part and another closes it, SENTINEL_GAP_S from the body on each
+    side; ``trace_events`` keeps what lies between the two and fails
+    unless both are there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def sentinel(n):
+        torch.cuda.synchronize()
+        time.sleep(SENTINEL_GAP_S)
+        torch.zeros(n, dtype=torch.uint8).to(DEVICE)
+        torch.cuda.synchronize()
+        time.sleep(SENTINEL_GAP_S)
+
+    acts = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu_ops else [])
+    with profile(activities=acts) as prof:
+        x = torch.zeros(1, device=DEVICE)
+        for _ in range(PREROLL_LAUNCHES):
+            x.add_(1)
+        sentinel(SENTINEL_BYTES[0])
+        yield prof
+        sentinel(SENTINEL_BYTES[1])
+
+
+def trace_events(prof) -> list[dict]:
+    """The device events of a ``device_profile`` between its two sentinel
+    copies, from Kineto's JSON export (one ``json.load``: torch's
+    per-event Python objects, ``prof.events()``, took minutes for a GOP
+    of a million launches)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)["traceEvents"]
+    dev = [e for e in trace
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    span = [(e.get("ts"), e.get("dur")) for e in trace
+            if e.get("cat") == "Trace"]
+    del trace
+    edges = []
+    for n in SENTINEL_BYTES:
+        at = [e["ts"] for e in dev
+              if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", "")
+              and e.get("args", {}).get("bytes") == n]
+        if len(at) != 1:
+            ts = [e["ts"] for e in dev] or [0]
+            raise TraceLost(
+                f"the device trace holds {len(at)} sentinel copies of {n} "
+                f"bytes, not one ({len(dev)} device events from {min(ts)} "
+                f"to {max(ts)}, trace span (ts, dur) {span})")
+        edges.append(at[0])
+    return [e for e in dev if edges[0] < e["ts"] < edges[1]]
+
+
+class TraceLost(AssertionError):
+    """A device trace that lacks a sentinel copy of its window."""
+
+
+def profiled(label: str, run, cpu_ops: bool = False):
+    """``run()`` under ``device_profile``: (its result, the device events
+    between the sentinels, seconds to stop and read the trace). A trace
+    that lost a sentinel is logged, and ``run`` goes once more under a
+    fresh profile."""
+    for attempt in (1, 2):
+        with device_profile(cpu_ops) as prof:
+            out = run()
+            t_end = time.monotonic()
+        try:
+            events = trace_events(prof)
+        except TraceLost as e:
+            if attempt == 2:
+                raise
+            log(f"  {label}: {e}; running it again")
+            continue
+        return out, events, time.monotonic() - t_end
+
+
+def memcpy_events(events: list[dict]) -> list[tuple[str, int]]:
+    """(direction, bytes) of every device copy among ``trace_events``, in
+    time order: h2d, d2h or d2d."""
+    copies = sorted((e for e in events if e["cat"] == "gpu_memcpy"),
+                    key=lambda e: e.get("ts", 0))
+    out = []
+    for e in copies:
+        name = e.get("name", "")
+        kind = next((k for k, tag in (("h2d", "HtoD"), ("d2h", "DtoH"),
+                                      ("d2d", "DtoD")) if tag in name),
+                    name)
+        if "bytes" not in e.get("args", {}):
+            raise AssertionError(f"memcpy event without bytes: {e}")
+        out.append((kind, int(e["args"]["bytes"])))
+    return out
+
+
+def bus_bytes(label: str, copies: list, seen: dict, n_frames: int,
+              n_gops: int, p_path: bool) -> dict:
+    """H2D / D2H bytes and copies of one traced encode, per GOP, and per P
+    frame of the P chunks: each chunk's upload must be one H2D copy of
+    the recorded size. On the P path every chunk is fetched by one D2H
+    copy (and one more when it overflows its caps) after the IDR's three
+    (its count, meta and blocks): no other read of the counts."""
+    h2d = [b for k, b in copies if k == "h2d"]
+    d2h = [b for k, b in copies if k == "d2h"]
+    ups = seen.get("p_uploads", [])
+    pool = list(h2d)
+    for _, b in ups:
+        if b not in pool:
+            raise AssertionError(f"{label}: no H2D copy of the {b} bytes of "
+                                 f"a P chunk's upload (copies {h2d[:40]})")
+        pool.remove(b)
+    n_p = sum(n for n, _ in ups)
+    tails = seen.get("p_tails", [])
+    out = {"h2d_bytes": sum(h2d), "h2d_copies": len(h2d),
+           "d2h_bytes": sum(d2h), "d2h_copies": len(d2h),
+           "h2d_per_gop": sum(h2d) / n_gops, "d2h_per_gop": sum(d2h) / n_gops,
+           "h2d_per_p_frame": sum(b for _, b in ups) / n_p if n_p else None,
+           "p_chunks": len(ups), "tail_fetches": sum(tails)}
+    log(f"  {label}: H2D {sum(h2d)} bytes in {len(h2d)} copies "
+        f"({out['h2d_per_gop']:.1f} a GOP), D2H {sum(d2h)} bytes in "
+        f"{len(d2h)} copies ({out['d2h_per_gop']:.1f} a GOP) over "
+        f"{n_frames} frames; P chunks {len(ups)} ({n_p} frames, "
+        f"{out['h2d_per_p_frame']} H2D bytes a P frame, each chunk one "
+        f"copy), tail fetches {sum(tails)}")
+    if p_path:
+        want = 3 * n_gops + len(ups) + sum(tails)
+        if len(d2h) != want:
+            raise AssertionError(f"{label}: {len(d2h)} D2H copies, expected "
+                                 f"{want}: 3 a GOP's IDR, one a P chunk, one "
+                                 f"a tail")
+    return out
+
+
+def _bus_path(label: str, frames, tmp: str, cli_args: list[str],
+              idrs: list[int], env: dict | None, cts=None,
+              p_path: bool = True) -> tuple[dict, dict]:
+    """One CLI encode of phase 3g under a device-only profiler: (launches,
+    bytes). Its fps is taken under the profiler."""
+    def run():
+        seen: dict = {}
+        with observe_bus(seen):
+            launches, _ = run_main_path(
+                label, frames, tmp, cli_args, idrs,
+                ("motion_search", "deblock_fast", "deblock_general"),
+                env=env, cts=cts)
+        return launches, seen
+
+    (launches, seen), events, _ = profiled(label, run)
+    return launches, bus_bytes(label, memcpy_events(events), seen,
+                               len(frames), len(idrs), p_path)
+
+
+def run_bus(tmp: str, frames, by_path: dict) -> dict:
+    """Phase 3g: what crosses the bus. Each pair encodes the same frames
+    through the CLI with the delta upload and the sparse fetches (the
+    defaults) and with ``VCP_DELTA=0`` (and ``VCP_SPARSE_B=0``): the NAL
+    units must be equal. The static content must upload at most a tenth
+    of the dense bytes a P frame, content where every tile changes at
+    most 2 % more."""
+    static = synth_frames_static(H, W, BUS_FRAMES, BUS_CUT)
+    b_cts = gop_cts(5, 2) * 2
+    pairs = (
+        ("bus-nvenc", static, ["-p", "h264-nvenc"], [0, BUS_CUT], None,
+         True),
+        ("bus-bf2", static[:BUS_B_FRAMES], [f"--ffmpeg-args={BUS_B_ARGS}"],
+         [0, 5], b_cts, False),
+        ("bus-synth", frames[:BUS_SYNTH_FRAMES], ["-p", "h264-nvenc"], [0],
+         None, True),
+    )
+    got = {}
+    for label, fr, cli_args, idrs, cts, p_path in pairs:
+        for lab, env in ((label, None), (f"{label}-dense", BUS_DENSE)):
+            by_path[lab], got[lab] = _bus_path(lab, fr, tmp, cli_args, idrs,
+                                               env, cts, p_path)
+        same = video_samples(os.path.join(tmp, f"{label}.mp4")) == \
+            video_samples(os.path.join(tmp, f"{label}-dense.mp4"))
+        log(f"  {label}: video samples == {label}-dense's: {same}; launches "
+            f"equal: {by_path[label] == by_path[label + '-dense']}; fps "
+            f"{len(fr) / WALL_S[label]:.2f} against "
+            f"{len(fr) / WALL_S[label + '-dense']:.2f} (under the profiler)")
+        if not same:
+            raise AssertionError(f"{label}: the delta and dense streams "
+                                 "differ")
+    for label, limit in (("bus-nvenc", 0.1), ("bus-synth", 1.02)):
+        ratio = got[label]["h2d_per_p_frame"] / \
+            got[f"{label}-dense"]["h2d_per_p_frame"]
+        log(f"  {label}: H2D bytes a P frame {ratio:.4f}x the dense "
+            f"upload's (limit {limit})")
+        if not ratio <= limit:
+            raise AssertionError(f"{label}: H2D a P frame {ratio:.4f}x "
+                                 f"dense, limit {limit}")
+    return got
+
+
+def run_bus_only(t_start: float) -> int:
+    """``--bus-only``: phase 3g and its phase-4 and phase-5 work, for a
+    short run after a change to what crosses the bus; prints no result."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    frames = synth_frames(H, W, BUS_SYNTH_FRAMES, BUS_SYNTH_FRAMES)
+    by_path: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"phase 3g: the bus ({time.monotonic() - t_start:.1f} s)")
+        run_bus(tmp, frames, by_path)
+    log(f"phase 4: the bus, cuda vs cpu ({time.monotonic() - t_start:.1f} "
+        "s)")
+    run_bus_phase4()
+    log(f"phase 5: the bus, profiled GOPs ({time.monotonic() - t_start:.1f}"
+        " s)")
+    profile_gop("h264-nvenc", frames, BUILTIN_PRESETS["h264-nvenc"])
+    run_bus_phase5()
+    log(f"bus phases done at {time.monotonic() - t_start:.1f} s; launches "
+        f"{by_path}")
+    print("bus only: no result")
+    return 0
+
+
+def bus_phase4_job() -> tuple:
+    """Phase 4 of the bus: two consecutive 3-frame GOPs of the static
+    content through one encoder (the second IDR a delta), (fn, args) for
+    ``compare_devices``: NAL units, last recon and delta carry."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    static = synth_frames_static(H, W, 6, BUS_CUT)
+    return gops_on, ([static[:3], static[3:]], BUILTIN_PRESETS["h264-nvenc"])
+
+
+def run_bus_phase4(cpu=None) -> None:
+    """Phase 4 of the bus, ``cuda == cpu``; ``cpu`` the future of its cpu
+    side, or None to run it here."""
+    compare_devices("bus-nvenc", "two GOPs", *bus_phase4_job(), cpu)
+
+
+def run_bus_phase5() -> None:
+    """Phase 5 of the bus: the static content's 9-frame GOP profiled with
+    the delta upload and without."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    static = synth_frames_static(H, W, 9, BUS_CUT)
+    profile_gop("bus-nvenc", static, BUILTIN_PRESETS["h264-nvenc"])
+    profile_gop("bus-nvenc-dense", static, BUILTIN_PRESETS["h264-nvenc"],
+                env={"VCP_DELTA": "0"})
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: cuda vs cpu on one GOP of each path
 # ---------------------------------------------------------------------------
 
-def check_devices(label: str, frames, ffargs: str,
-                  count: tuple[str, ...] = ()) -> None:
-    """One GOP on cuda and on cpu: the same NAL units. The kernels named
-    in ``count`` must launch in the cuda run (logged)."""
+REF_WORKERS = 3              # spawned children that run phase 4's cpu sides
+REF_THREADS = 2              # torch threads in each of them
+
+
+def _ref_init() -> None:
+    torch.set_num_threads(REF_THREADS)
+
+
+def start_cpu_refs(jobs: dict) -> tuple:
+    """Start the cpu sides of phase 4, {label: (fn, args)}, in order in
+    REF_WORKERS spawned children (they share no CUDA state with this
+    process and use no card), beside this process's device sides:
+    (pool, {label: future}). ``pool.shutdown`` stops them."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        REF_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_ref_init)
+    return pool, {k: pool.submit(fn, "cpu", *args)
+                  for k, (fn, args) in jobs.items()}
+
+
+def _h264_encoder(dev: str, frames, ffargs: str):
     from vcp_tpu_torch.codec.args import parse_encode_args
     from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
-    params = parse_encode_args(ffargs)
     h, w = frames[0][0].shape
-    devices = (DEVICE, "cpu")
-    counters = {k: launch_counters()[k] for k in count}
-    out, recon = {}, {}
-    for dev in devices:
-        cfg = EncoderConfig.from_params(params, w, h, 30, 1)
-        enc = H264Encoder(cfg, device=dev)
-        before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+    cfg = EncoderConfig.from_params(parse_encode_args(ffargs), w, h, 30, 1)
+    return cfg, H264Encoder(cfg, device=dev)
+
+
+def _stages(enc) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
+
+
+def gop_on(dev: str, frames, ffargs: str, env: dict | None = None):
+    """One GOP through one H.264 encoder on ``dev`` under the settings
+    ``env``: (NAL units, [last recon planes], log line)."""
+    with scoped_env(env):
+        cfg, enc = _h264_encoder(dev, frames, ffargs)
         t0 = time.monotonic()
-        out[dev] = enc.encode_gop(frames)
-        stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
-        launched = {k: getattr(fn, a) - before[k]
-                    for k, (fn, a) in counters.items()}
-        log(f"  {label} GOP ({len(frames)} frames, B pictures "
-            f"{cfg.bframes}) on {dev}: {time.monotonic() - t0:.3f} s, qp "
-            f"{cfg.qp} ({stages})"
-            + (f", launches {launched}" if count else ""))
-        if dev == devices[0] and not all(launched.values()):
-            raise AssertionError(f"{label}: kernels not launched "
-                                 f"{launched}")
-        recon[dev] = enc.recon_planes
-        if dev == devices[0]:
-            ry = enc.recon_planes[0].astype(np.float64)
-            mse = float(np.mean((ry - frames[-1][0].astype(np.float64))
-                                ** 2))
-            psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
-            log(f"  recon luma PSNR of the last frame: {psnr:.2f} dB "
-                f"(floor {PSNR_FLOOR_DB})")
-            if not psnr > PSNR_FLOOR_DB:
-                raise AssertionError(f"PSNR {psnr:.2f} dB below floor")
-    a, b = (out[d] for d in devices)
-    same = len(a) == len(b) and all(x == y for x, y in zip(a, b))
-    same_recon = all(np.array_equal(x, y) for x, y in zip(
-        *(recon[d] for d in devices)))
-    log(f"  NAL units {devices[0]} == {devices[1]}: {same} ({len(a)} "
-        f"access units, {sum(len(x[0]) for x in a)} bytes), last recon "
-        f"equal: {same_recon}")
-    if not (same and same_recon):
-        raise AssertionError(f"{label}: cuda and cpu bitstreams or recon "
-                             "differ")
+        out = enc.encode_gop(frames)
+        secs = time.monotonic() - t0
+    return (out, list(enc.recon_planes), f"{secs:.3f} s, qp {cfg.qp}, B "
+            f"pictures {cfg.bframes} ({_stages(enc)})")
+
+
+def mesh_gop_on(dev: str, frames, ffargs: str, n_tile: int,
+                env: dict | None = None):
+    """One GOP over a mesh of ``n_tile`` x ``dev``: (NAL units, [last
+    recon planes], log line)."""
+    from vcp_tpu_torch.parallel.mesh import make_mesh
+    with scoped_env(env):
+        _, enc = _h264_encoder(dev, frames, ffargs)
+        mesh = make_mesh(n_tile, data=1, tile=n_tile,
+                         devices=[enc.device] * n_tile)
+        t0 = time.monotonic()
+        out = enc._encode_gop_mesh(frames, mesh)
+        secs = time.monotonic() - t0
+    return out, list(enc.recon_planes), f"{secs:.3f} s, {n_tile} bands"
+
+
+def gops_on(dev: str, gops, ffargs: str, env: dict | None = None):
+    """GOPs in turn through one H.264 encoder on ``dev``: (NAL units,
+    [last recon planes, host tiles and device source of the delta carry],
+    log line)."""
+    with scoped_env(env):
+        _, enc = _h264_encoder(dev, gops[0], ffargs)
+        t0 = time.monotonic()
+        out = [s for g in gops for s in enc.encode_gop(g)]
+        secs = time.monotonic() - t0
+    state = [*enc.recon_planes, enc._prev_tiles,
+             *(p.cpu().numpy() for p in enc._src_dev)]
+    return out, state, f"{secs:.3f} s for GOPs of {[len(g) for g in gops]}"
+
+
+def hevc_on(dev: str, frames, ffargs: str, env: dict | None = None):
+    """IDR + P frames through one HEVC encoder on ``dev``: (NAL units, [],
+    log line)."""
+    from vcp_tpu_torch.codec.args import parse_encode_args
+    from vcp_tpu_torch.codec.h265.encoder import (HevcEncoder,
+                                                  HevcEncoderConfig)
+    h, w = frames[0][0].shape
+    with scoped_env(env):
+        cfg = HevcEncoderConfig.from_params(parse_encode_args(ffargs), w, h,
+                                            30, 1)
+        enc = HevcEncoder(cfg, device=dev)
+        t0 = time.monotonic()
+        out = [enc.encode_frame(*f) for f in frames]
+        secs = time.monotonic() - t0
+    return out, [], (f"{secs:.3f} s, qp {cfg.qp}, RD intra "
+                     f"{cfg.use_rd_intra()} ({_stages(enc)})")
+
+
+def compare_devices(label: str, what: str, fn, args: tuple, cpu=None,
+                    count: tuple[str, ...] = ()):
+    """``fn(DEVICE, *args)`` here and ``fn("cpu", *args)`` (the future
+    ``cpu`` of a child, or here when None): the same NAL units and state
+    arrays. The kernels named in ``count`` must launch on the device side
+    (logged). Returns the device side's state arrays."""
+    counters = {k: launch_counters()[k] for k in count}
+    before = {k: getattr(fn_, a) for k, (fn_, a) in counters.items()}
+    out, state, line = fn(DEVICE, *args)
+    launched = {k: getattr(fn_, a) - before[k]
+                for k, (fn_, a) in counters.items()}
+    log(f"  {label} {what} on {DEVICE}: {line}"
+        + (f", launches {launched}" if count else ""))
+    if not all(launched.values()):
+        raise AssertionError(f"{label}: kernels not launched {launched}")
+    ref_out, ref_state, ref_line = cpu.result() if cpu is not None \
+        else fn("cpu", *args)
+    log(f"  {label} {what} on cpu: {ref_line}")
+    same = out == ref_out
+    same_state = len(state) == len(ref_state) and all(
+        np.array_equal(a, b) for a, b in zip(state, ref_state))
+    log(f"  {label}: NAL units {DEVICE} == cpu: {same} ({len(out)} access "
+        f"units, {sum(len(x[0]) for x in out)} bytes), state equal: "
+        f"{same_state}")
+    if not (same and same_state):
+        raise AssertionError(f"{label}: {DEVICE} and cpu differ")
+    return state
+
+
+def check_devices(label: str, frames, ffargs: str,
+                  count: tuple[str, ...] = (), cpu=None) -> None:
+    """One GOP on cuda and on cpu (``gop_on`` under the VCP_* settings of
+    the moment): the same NAL units and last recon, and the last frame's
+    recon above PSNR_FLOOR_DB. The kernels named in ``count`` must launch
+    in the cuda run (logged)."""
+    env = {k: v for k, v in os.environ.items() if k.startswith("VCP_")}
+    recon = compare_devices(label, f"GOP ({len(frames)} frames)", gop_on,
+                            (frames, ffargs, env), cpu, count)
+    ry = recon[0].astype(np.float64)
+    mse = float(np.mean((ry - frames[-1][0].astype(np.float64)) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    log(f"  recon luma PSNR of the last frame: {psnr:.2f} dB "
+        f"(floor {PSNR_FLOOR_DB})")
+    if not psnr > PSNR_FLOOR_DB:
+        raise AssertionError(f"PSNR {psnr:.2f} dB below floor")
 
 
 def check_pyramid_pstep(frames) -> None:
@@ -2406,35 +2826,17 @@ def check_pyramid_pstep(frames) -> None:
                              "cuda and cpu")
 
 
-def check_devices_hevc(label: str, frames, ffargs: str) -> None:
+def check_devices_hevc(label: str, frames, ffargs: str, cpu=None) -> None:
     """IDR + P frames of the HEVC encoder on cuda and on cpu: the same NAL
     units, and none of the four kernels launched."""
-    from vcp_tpu_torch.codec.args import parse_encode_args
-    from vcp_tpu_torch.codec.h265.encoder import (HevcEncoder,
-                                                  HevcEncoderConfig)
-    params = parse_encode_args(ffargs)
-    h, w = frames[0][0].shape
     counters = launch_counters()
-    out = {}
-    for dev in (DEVICE, "cpu"):
-        cfg = HevcEncoderConfig.from_params(params, w, h, 30, 1)
-        enc = HevcEncoder(cfg, device=dev)
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        t0 = time.monotonic()
-        out[dev] = [enc.encode_frame(*f) for f in frames]
-        launched = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
-        stages = ", ".join(f"{k} {v:.3f} s" for k, v in enc.stage_s.items())
-        log(f"  {label} IDR + {len(frames) - 1} P on {dev}: "
-            f"{time.monotonic() - t0:.3f} s, qp {cfg.qp}, RD intra "
-            f"{cfg.use_rd_intra()} ({stages}), launches {launched}")
-        no_launches(label, launched)
-    a, b = out[DEVICE], out["cpu"]
-    same = a == b
-    log(f"  NAL units {DEVICE} == cpu: {same} ({len(a)} access units, "
-        f"{sum(len(x[0]) for x in a)} bytes)")
-    if not same:
-        raise AssertionError(f"{label}: cuda and cpu bitstreams differ")
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    compare_devices(label, f"IDR + {len(frames) - 1} P", hevc_on,
+                    (frames, ffargs), cpu)
+    launched = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+    log(f"  {label}: launches {launched}")
+    no_launches(label, launched)
 
 
 def profile_hevc(label: str, frames, ffargs: str) -> None:
@@ -2504,42 +2906,34 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
     Fails unless every deblock wrapper call of the GOP shows as exactly
     one ``deblock_wave`` device kernel and no per-diagonal reference
     kernel ran."""
-    from torch.profiler import ProfilerActivity, profile
     from vcp_tpu_torch.codec.args import parse_encode_args
     from vcp_tpu_torch.codec.h264.encoder import EncoderConfig, H264Encoder
     h, w = frames[0][0].shape
+    counters = [launch_counters()[k] for k in (
+        "deblock_fast", "deblock_general", "deblock_general_no_strong")]
+
+    def run():
+        enc = H264Encoder(cfg, device="cuda")
+        calls = -sum(getattr(fn, attr) for fn, attr in counters)
+        t0 = time.monotonic()
+        enc.encode_gop(frames)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        return enc, wall, calls + sum(getattr(fn, attr)
+                                      for fn, attr in counters)
+
     with scoped_env(env):
         cfg = EncoderConfig.from_params(parse_encode_args(ffargs), w, h, 30,
                                         1)
-        enc = H264Encoder(cfg, device="cuda")
-        torch.cuda.synchronize()
-        counters = [launch_counters()[k] for k in (
-            "deblock_fast", "deblock_general", "deblock_general_no_strong")]
-        calls = -sum(getattr(fn, attr) for fn, attr in counters)
-        acts = [ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if cpu_ops else [])
-        with profile(activities=acts) as prof:
-            t0 = time.monotonic()
-            enc.encode_gop(frames)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-        calls += sum(getattr(fn, attr) for fn, attr in counters)
-    t_read = t0 + wall                  # the trace is read from here on
-    # Kineto's own JSON export and one json.load: building torch's
-    # per-event Python objects (prof.events()) took minutes for a GOP of
-    # a million launches
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            trace = json.load(fh)["traceEvents"]
+        (enc, wall, calls), events, read_s = profiled(label, run, cpu_ops)
     by_name: dict[str, list] = {}
-    for e in trace:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            acc = by_name.setdefault(e["name"], [0, 0.0])
-            acc[0] += 1
-            acc[1] += e.get("dur", 0) / 1e3
-    del trace
+    for e in events:
+        acc = by_name.setdefault(e["name"], [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.get("dur", 0) / 1e3
+    nbytes = {k: sum(b for d, b in memcpy_events(events) if d == k)
+              for k in ("h2d", "d2h")}
+    del events
     busy = sum(v[1] for v in by_name.values())
     n = sum(v[0] for v in by_name.values())
     if n == 0:
@@ -2548,8 +2942,8 @@ def profile_gop(label: str, frames, ffargs: str, cpu_ops: bool = True,
     log(f"  profiled {label} GOP ({len(frames)} frames): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms over {n} device "
         f"kernels/copies (idle share {1 - busy / (wall * 1e3):.3f}); "
-        f"{stages}; trace stopped and read in "
-        f"{time.monotonic() - t_read:.1f} s")
+        f"H2D {nbytes['h2d']} bytes, D2H {nbytes['d2h']} bytes; "
+        f"{stages}; trace stopped and read in {read_s:.1f} s")
     for name, (cnt, ms) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][1])[:10]:
         log(f"    {ms:9.3f} ms {cnt:6d}x  {name[:90]}")
@@ -2612,6 +3006,49 @@ def run_control_only(card: str, t_start: float) -> int:
     return 0
 
 
+def run_phase4(frames, qframes, bq, hframes) -> None:
+    """Phase 4: ``cuda == cpu`` on one GOP of each path. Every cpu side
+    starts at once in child processes (``start_cpu_refs``); the device
+    sides run here in the same order and wait for theirs."""
+    from vcp_tpu_torch.config import BUILTIN_PRESETS
+    hier0 = {"VCP_HIER_ME": "0"}
+    cavlc0 = {**CAVLC_CPU_ENV, "VCP_HIER_ME": "0"}
+    gops = {
+        "h264-nvenc": (frames[:9], BUILTIN_PRESETS["h264-nvenc"], {}, ()),
+        "medium-bf0-exhaustive": (qframes[:3], Q_ARGS, hier0, ()),
+        # IDR, P3, B1, B2
+        "h264-cpu-exhaustive": (bq[:4], BUILTIN_PRESETS["h264-cpu"], hier0,
+                                ()),
+        # the search-only kernel at +-16 on both B lists, quarter-pel
+        # partitions on the anchor
+        "h264-nvenc-hq-exhaustive": (bq[:4], BUILTIN_PRESETS["h264-nvenc-hq"],
+                                     hier0, ("motion_search_only",)),
+        # IDR (I16-only RD), P3, B1, B2 through the CAVLC writers
+        "cavlc-cpu-exhaustive": (bq[:4], BUILTIN_PRESETS["h264-cpu"], cavlc0,
+                                 ("motion_search_only",)),
+        # IDR + 1 P: the chunked quarter-pel P path
+        "p7-bf0": (qframes[:2], P7_ARGS, {}, ()),
+    }
+    hevc = {p: (hevc_on, (hframes[:3], BUILTIN_PRESETS[p]))
+            for p in ("h265-nvenc", "h265-cpu")}
+    pool, refs = start_cpu_refs({
+        **{k: (gop_on, (fr, args, env)) for k, (fr, args, env, _)
+           in gops.items()},
+        **hevc, **mesh_phase4_jobs(frames, bq),
+        "bus-nvenc": bus_phase4_job()})
+    try:
+        for label, (fr, args, env, count) in gops.items():
+            with scoped_env(env):
+                check_devices(label, fr, args, count, refs[label])
+        check_pyramid_pstep(qframes)
+        for preset, (_, (fr, args)) in hevc.items():
+            check_devices_hevc(preset, fr, args, refs[preset])
+        run_mesh_phase4(frames, bq, refs)
+        run_bus_phase4(refs["bus-nvenc"])
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2652,6 +3089,8 @@ def main(argv: list[str]) -> int:
         return run_mesh_only(synth_frames(H, W, MESH_FRAMES, MESH_FRAMES),
                              synth_frames_subpel(H, W, B_FRAMES, B_FRAMES),
                              t_start)
+    if "--bus-only" in argv:
+        return run_bus_only(t_start)
 
     log("phase 2: kernels vs plain versions at 1088x1920")
     rows = [*check_motion(dev, HP, W, reps=20),
@@ -2751,31 +3190,12 @@ def main(argv: list[str]) -> int:
         run_cavlc(tmp, frames, bq, by_path)
         log(f"phase 3f: the tile mesh ({time.monotonic() - t_start:.1f} s)")
         run_mesh(tmp, frames, bq, by_path)
+        log(f"phase 3g: the bus ({time.monotonic() - t_start:.1f} s)")
+        run_bus(tmp, frames, by_path)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")
-    check_devices("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
-    with scoped_env({"VCP_HIER_ME": "0"}):
-        check_devices("medium-bf0-exhaustive", qframes[:3], Q_ARGS)
-        # IDR, P3, B1, B2
-        check_devices("h264-cpu-exhaustive", bq[:4],
-                      BUILTIN_PRESETS["h264-cpu"])
-        # the search-only kernel at +-16 on both B lists, quarter-pel
-        # partitions on the anchor
-        check_devices("h264-nvenc-hq-exhaustive", bq[:4],
-                      BUILTIN_PRESETS["h264-nvenc-hq"],
-                      count=("motion_search_only",))
-    # IDR (I16-only RD), P3, B1, B2 through the CAVLC writers
-    with scoped_env({**CAVLC_CPU_ENV, "VCP_HIER_ME": "0"}):
-        check_devices("cavlc-cpu-exhaustive", bq[:4],
-                      BUILTIN_PRESETS["h264-cpu"],
-                      count=("motion_search_only",))
-    # IDR + 1 P: the chunked quarter-pel P path
-    check_devices("p7-bf0", qframes[:2], P7_ARGS)
-    check_pyramid_pstep(qframes)
-    for preset in ("h265-nvenc", "h265-cpu"):
-        check_devices_hevc(preset, hframes[:3], BUILTIN_PRESETS[preset])
-    run_mesh_phase4(frames, bq)
+    run_phase4(frames, qframes, bq, hframes)
     log("phase 5: device time of one GOP on cuda (torch.profiler; "
         f"{time.monotonic() - t_start:.1f} s)")
     profile_gop("h264-nvenc", frames[:9], BUILTIN_PRESETS["h264-nvenc"])
@@ -2788,6 +3208,7 @@ def main(argv: list[str]) -> int:
                 BUILTIN_PRESETS["h264-cpu"], cpu_ops=False,
                 env={"VCP_HIER_ME": "0"})
     profile_hevc("h265-cpu", hframes[:3], BUILTIN_PRESETS["h265-cpu"])
+    run_bus_phase5()
     finish_decodes(decodes)
 
     for row in rows:

@@ -1,16 +1,23 @@
 """H.264 encoder orchestration: device math + host entropy + mux.
 
-Port of the single-device GOP coders of ``vcp_tpu/codec/h264/encoder.py``
-with dense uploads of the padded source planes. Without B pictures, per
-GOP the IDR and every P chunk (8/4/2/1 frames) are dispatched to the
-device first, chained on the device-resident recon; then each chunk's
-compacted entropy rows are fetched and written by the host CABAC slice
-writers in order. With B pictures (``_encode_gop_b``) the GOP is an IDR,
+Port of the single-device GOP coders of ``vcp_tpu/codec/h264/encoder.py``.
+Without B pictures, per GOP the IDR and every P chunk (8/4/2/1 frames)
+are dispatched to the device first, chained on the device-resident
+recon, each chunk's compacted entropy rows packed into one buffer whose
+copy to the host starts at once; then the chunks are read in order and
+written by the host CABAC slice writers. With B pictures
+(``_encode_gop_b``) the GOP is an IDR,
 P anchors every bframes+1 display frames (the per-frame P step of
 ``pframe``: partitions and the intra overlay at the quality presets) and
 non-reference B pictures between them (``gop_ops.encode_bframe``),
 dispatched in decode order with each frame's entropy inputs packed into
-one int16 buffer on the device, then fetched and written in that order.
+one int16 buffer on the device (by default only its nonzero 16-word
+chunks cross the bus, ``VCP_SPARSE_B``), then fetched and written in that
+order. Both coders upload by default only the 16x16 source tiles that
+changed since the previous frame against a source carried on the device
+across GOPs (``VCP_DELTA``); ``VCP_DELTA=0`` / ``VCP_SPARSE_B=0`` select
+the dense transfers. On ``cuda`` every upload and every P chunk's fetch
+goes through pinned host memory, asynchronous to the host.
 ``encode_frame`` codes one frame at a time (IDR, then P pictures), with
 one device step and one slice writer per frame. With more than one card
 (or ``VCP_MESH=N``) a GOP without B pictures, 8x8 transform or partitions
@@ -194,6 +201,16 @@ class H264Encoder:
         # idr / p / b dispatch stages (``VCP_TIMING``'s pack_ms)
         self._pack_s = 0.0
         self._last_p_data = None    # entropy input of encode_frame's last P
+        # the delta upload's carry: the last uploaded source frame as host
+        # MB tiles and as the device's MB-tiled (sy, su, sv); both coders
+        # share it, and it passes from GOP to GOP
+        self._prev_tiles = None
+        self._src_dev = None
+        # sticky caps (rows) of a P chunk's one fetch buffer, and (chunks)
+        # of each B-GOP buffer kind's word-sparse fetch; grown on overflow
+        self._mcap = 512
+        self._pcap = 256
+        self._spcaps: dict[str, int] = {}
         self.rc = None
         if cfg.params is not None and cfg.params.rate_mode() == "abr":
             from .ratecontrol import RateController
@@ -219,8 +236,75 @@ class H264Encoder:
         return out
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        arr = np.require(arr, requirements=("C", "W"))
-        return torch.from_numpy(arr).to(self.device)
+        """A host array as a tensor on the encoder's device. On ``cuda``
+        through a pinned staging tensor of its own and an asynchronous
+        copy: PyTorch's pinned allocator hands the staging block out again
+        only after that copy has run, so no upload overwrites another."""
+        host = torch.from_numpy(np.require(arr, requirements=("C", "W")))
+        if self.device.type != "cuda":
+            return host
+        staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        staged.copy_(host)
+        return staged.to(self.device, non_blocking=True)
+
+    def _fetch_async(self, t: torch.Tensor):
+        """Start copying a device tensor to the host: (host tensor, event
+        or None). On ``cuda`` the copy goes into pinned memory and the
+        event marks its end; ``_fetched`` waits on it."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        return host, ev
+
+    def _fetched(self, token) -> np.ndarray:
+        """The host array of a ``_fetch_async`` token, once its copy has
+        run (the one wait of a P chunk's fetch)."""
+        host, ev = token
+        if ev is not None:
+            ev.synchronize()
+        return host.numpy()
+
+    def _use_delta(self) -> bool:
+        """Upload only the changed 16x16 source tiles against the carried
+        source (``gop_ops`` delta tiles): bit-exact, on by default;
+        ``VCP_DELTA=0`` selects the dense upload. Read on every call."""
+        return os.environ.get("VCP_DELTA", "1") != "0"
+
+    def _delta_carry(self, n_mb: int):
+        """The delta upload's (host tiles, device source) at the start of
+        a GOP: the carried pair, or fresh zero tiles and no source when
+        there is none or the MB count changed."""
+        if self._prev_tiles is None or self._prev_tiles.shape[0] != n_mb:
+            return np.zeros((n_mb, gop_ops.TILE_WORDS), np.uint8), None
+        return self._prev_tiles, self._src_dev
+
+    def _tile_delta(self, planes, prev: np.ndarray, full: bool = False):
+        """``gop_ops.tile_delta`` on padded host planes, its host seconds
+        counted as packing."""
+        t0 = time.perf_counter()
+        out = gop_ops.tile_delta(*planes, prev, full=full)
+        self._pack_s += time.perf_counter() - t0
+        return out
+
+    def _upload_delta(self, deltas: list, n_mb: int):
+        """The deltas [(idx, tiles)] of one or more frames padded to one
+        bucket and uploaded as ONE buffer: (idx (N, K) int32, tiles (N,
+        K, 384) uint8) on the device."""
+        t0 = time.perf_counter()
+        bucket = gop_ops.delta_bucket(max(len(ix) for ix, _ in deltas), n_mb)
+        n, nb = len(deltas), len(deltas) * bucket * 4
+        buf = np.empty(nb + n * bucket * gop_ops.TILE_WORDS, np.uint8)
+        idx_h = buf[:nb].view(np.int32).reshape(n, bucket)
+        tiles_h = buf[nb:].reshape(n, bucket, gop_ops.TILE_WORDS)
+        for k, (ix, t) in enumerate(deltas):
+            idx_h[k], tiles_h[k] = gop_ops.pad_delta(ix, t, bucket, n_mb)
+        self._pack_s += time.perf_counter() - t0
+        dev = self._upload(buf)
+        return (dev[:nb].view(torch.int32).reshape(n, bucket),
+                dev[nb:].reshape(n, bucket, gop_ops.TILE_WORDS))
 
     def encode_gop(self, frames: list) -> list[tuple]:
         """Encode a list of (y, u, v) frames, the first as IDR and the
@@ -343,13 +427,21 @@ class H264Encoder:
             self.stage_s["entropy"] += time.perf_counter() - t2
             i += chunk
         self._recon = recon
+        # the mesh bypasses the delta carry: the next GOP starts it anew
+        self._prev_tiles = self._src_dev = None
         self.frame_index += len(frames)
         if self.rc:
             self.rc.update(len(frames), sum(len(nal) for nal, _ in out))
         return out
 
     def _encode_gop_p(self, frames: list) -> list[tuple]:
-        """IDR + P chunks on the encoder's device (see ``encode_gop``)."""
+        """IDR + P chunks on the encoder's device (see ``encode_gop``).
+        With the delta upload the IDR takes the carried source (a delta
+        when there is one, else the whole frame) and every P chunk one
+        upload of its frames' changed tiles, padded to one bucket. Each P
+        chunk's outputs cross the bus as one ``combine_fetch`` buffer
+        whose copy starts right after dispatch; rows past the sticky caps
+        come in one tail fetch, and the caps grow."""
         cfg = self.cfg
         qp = self.rc.gop_qp() if self.rc else cfg.qp
         qpc = chroma_qp(qp, self.pp.chroma_qp_index_offset)
@@ -358,22 +450,40 @@ class H264Encoder:
         sr = search_range_for_effort(cfg.effort)
         lam = lam_for_qp(qp)
         n_mby, n_mbx = self.sp.mb_height, self.sp.mb_width
+        n_mb = n_mby * n_mbx
         h16, w16 = 16 * n_mby, 16 * n_mbx
+        delta = self._use_delta()
+        if delta:
+            prev_tiles, src = self._delta_carry(n_mb)
 
         # Phase 1: dispatch the IDR and every P chunk; the chunks chain on
         # the IDR's device-resident recon.
         t0 = time.perf_counter()
         rd_intra = cfg.use_rd_intra()
-        planes = [self._upload(p) for p in self._pad(*frames[0])]
-        if rd_intra:
-            # quality shape: dense RD-mode intra (per-MB mode choice); one
-            # IDR per GOP, so the dense fetch is amortized
-            iout, ikeys = self._rd_iframe(planes, qp_i, qpc_i)
-            recon = (iout["recon_y"], iout["recon_u"], iout["recon_v"])
+        pads = self._pad(*frames[0])
+        if delta and src is not None and not rd_intra:
+            # the IDR as a delta against the carried source
+            idx, tiles = self._upload_delta(
+                [self._tile_delta(pads, prev_tiles)], n_mb)
+            imeta, icount, iblocks, *src, ry, ru, rv = \
+                gop_ops.encode_iframe_delta(*src, idx[0], tiles[0], qp_i,
+                                            qpc_i, h16, w16, cfg.deblock)
+            recon = (ry, ru, rv)
         else:
-            imeta, icount, iblocks, *recon = gop_ops.encode_iframe_sparse(
-                *planes, qp_i, qpc_i, cfg.deblock)
-            recon = tuple(recon)
+            planes = [self._upload(p) for p in pads]
+            if delta:
+                self._tile_delta(pads, prev_tiles, full=True)
+                src = gop_ops.source_tiles(*planes, h16, w16)
+            if rd_intra:
+                # quality shape: dense RD-mode intra (per-MB mode choice);
+                # one IDR per GOP, so the dense fetch is amortized
+                iout, ikeys = self._rd_iframe(planes, qp_i, qpc_i)
+                recon = (iout["recon_y"], iout["recon_u"], iout["recon_v"])
+            else:
+                imeta, icount, iblocks, *recon = \
+                    gop_ops.encode_iframe_sparse(*planes, qp_i, qpc_i,
+                                                 cfg.deblock)
+                recon = tuple(recon)
         self.idr_count += 1
         self._frame_num = 1
         t1 = time.perf_counter()
@@ -384,18 +494,33 @@ class H264Encoder:
         while i < len(frames):
             chunk = next(c for c in self.P_CHUNKS if c <= len(frames) - i)
             pads = [self._pad(*frames[i + k]) for k in range(chunk)]
-            tp = time.perf_counter()
-            buf = gop_ops.pack_frames(pads)
-            self._pack_s += time.perf_counter() - tp
-            bitmap, counts, meta, payload, ry, ru, rv = \
-                gop_ops.encode_pchunk_sparse(
-                    self._upload(buf), *recon, qp, qpc, sr, lam, h16, w16,
-                    cfg.deblock, subpel_for_effort(cfg.effort),
-                    cfg.transform8)
+            if delta:
+                idx, tiles = self._upload_delta(
+                    [self._tile_delta(p, prev_tiles) for p in pads], n_mb)
+                bitmap, counts, meta, payload, *src, ry, ru, rv = \
+                    gop_ops.encode_pchunk_delta(
+                        *src, idx, tiles, *recon, qp, qpc, sr, lam, h16,
+                        w16, cfg.deblock, subpel_for_effort(cfg.effort),
+                        cfg.transform8)
+            else:
+                tp = time.perf_counter()
+                buf = gop_ops.pack_frames(pads)
+                self._pack_s += time.perf_counter() - tp
+                bitmap, counts, meta, payload, ry, ru, rv = \
+                    gop_ops.encode_pchunk_sparse(
+                        self._upload(buf), *recon, qp, qpc, sr, lam, h16,
+                        w16, cfg.deblock, subpel_for_effort(cfg.effort),
+                        cfg.transform8)
             recon = tuple(p.to(torch.uint8) for p in (ry, ru, rv))
-            pending.append((bitmap, counts, meta, payload))
+            mcap = min(self._mcap, meta.shape[0])
+            pcap = min(self._pcap, payload.shape[0])
+            pending.append((chunk, self._fetch_async(gop_ops.combine_fetch(
+                bitmap, counts, meta, payload, mcap, pcap)), meta, payload,
+                mcap, pcap))
             i += chunk
         self._recon = recon
+        if delta:
+            self._prev_tiles, self._src_dev = prev_tiles, tuple(src)
         t0, t1 = t1, time.perf_counter()
         self.stage_s["p"] += t1 - t0
 
@@ -417,15 +542,17 @@ class H264Encoder:
             idr_pic_id=(self.idr_count - 1) % 65536, qp=qp_i, data=idata,
             deblock=cfg.deblock, poc_lsb=0), True))
         self.stage_s["entropy"] += time.perf_counter() - t2
-        for bitmap, counts, meta, payload in pending:
+        for chunk, token, meta, payload, mcap, pcap in pending:
             t1 = time.perf_counter()
-            mcount, bcount = (int(c) for c in counts.cpu())
-            host = (bitmap.cpu().numpy(), meta[:mcount].cpu().numpy(),
-                    payload[:bcount].cpu().numpy())
+            mcount, bcount, bitmap_h, meta_h, pay_h = gop_ops.split_fetch(
+                self._fetched(token), chunk, n_mb, mcap, pcap)
+            if mcount > mcap or bcount > pcap:
+                meta_h, pay_h = self._fetch_tail(meta, payload, meta_h,
+                                                 pay_h, mcount, bcount)
             t2 = time.perf_counter()
             self.stage_s["fetch"] += t2 - t1
             for data in gop_ops.unpack_sparse_chunk(
-                    *host, mcount, bcount, n_mby, n_mbx):
+                    bitmap_h, meta_h, pay_h, mcount, bcount, n_mby, n_mbx):
                 out.append((entropy.write_pslice(
                     self.sp, self.pp, frame_num=self._frame_num, qp=qp,
                     data=data, deblock=cfg.deblock,
@@ -436,6 +563,32 @@ class H264Encoder:
         if self.rc:
             self.rc.update(len(frames), sum(len(nal) for nal, _ in out))
         return out
+
+    def _fetch_tail(self, meta, payload, meta_h, pay_h, mcount: int,
+                    bcount: int):
+        """A P chunk whose counts passed the sticky caps: the rows past
+        them, each up to a fetch bucket, in ONE copy; then the caps grow
+        (twice the count, bucketed, at most 2^15 rows) so that later
+        chunks fetch in one buffer. Returns the whole (meta, payload)."""
+        mcap, pcap = len(meta_h), len(pay_h)
+        mend = gop_ops.fetch_bucket(mcount, meta.shape[0], base=mcap) \
+            if mcount > mcap else mcap
+        pend = gop_ops.fetch_bucket(bcount, payload.shape[0], base=pcap) \
+            if bcount > pcap else pcap
+        tail = torch.cat([meta[mcap:mend].reshape(-1),
+                          payload[pcap:pend].reshape(-1)]).cpu().numpy()
+        nm = (mend - mcap) * meta.shape[1]
+        meta_h = np.concatenate([meta_h, tail[:nm].reshape(-1,
+                                                           meta.shape[1])])
+        pay_h = np.concatenate([pay_h, tail[nm:].reshape(-1,
+                                                         payload.shape[1])])
+        if mcount > mcap:
+            self._mcap = min(gop_ops.fetch_bucket(
+                2 * mcount, meta.shape[0], base=256), 1 << 15)
+        if bcount > pcap:
+            self._pcap = min(gop_ops.fetch_bucket(
+                2 * bcount, payload.shape[0], base=256), 1 << 15)
+        return meta_h, pay_h
 
     LEVEL_KEYS = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
 
@@ -498,6 +651,9 @@ class H264Encoder:
             self._frame_num += 1
         self._recon = (out["recon_y"], out["recon_u"], out["recon_v"])
         self.frame_index += 1
+        # the per-frame path keeps no device source: a later encode_gop
+        # starts the delta carry anew with a whole frame
+        self._prev_tiles = self._src_dev = None
         return nal, is_idr
 
     def _encode_pframe(self, planes, qp: int, qpc: int):
@@ -532,11 +688,11 @@ class H264Encoder:
 
         Phase 1 dispatches the whole decode-order device chain, packing
         each frame's entropy inputs into one flat int16 buffer on the
-        device; phase 2 copies each buffer to the host once and runs the
-        slice writers in order. (vcp_tpu also ships only the nonzero
-        16-word chunks of each buffer and uploads only the changed
-        source tiles; both change only what crosses the bus, not the
-        stream, and are not ported yet: ROADMAP A3.)"""
+        device (with ``VCP_SPARSE_B`` on, the default, only its nonzero
+        16-word chunks, ``gop_ops.sparsify_buf``, with a sticky cap per
+        buffer kind) and starting its copy to the host; the source frames
+        go up in decode order as delta tiles over the shared carry. Phase
+        2 reads each buffer once and runs the slice writers in order."""
         from . import bframe, pframe
         cfg = self.cfg
         qp = self.rc.gop_qp() if self.rc else cfg.qp
@@ -576,9 +732,18 @@ class H264Encoder:
         bfields = [("mv0", (nby, nbx, 2)), ("mv1", (nby, nbx, 2)),
                    ("mode", (nby, nbx))] + pfields[:5]
 
-        def pack(o, fields):
-            return torch.cat([o[k].to(torch.int16).reshape(-1)
-                              for k, _ in fields])
+        sparse = os.environ.get("VCP_SPARSE_B", "1") != "0"
+        spcaps = self._spcaps
+
+        def pack(o, fields, key):
+            buf = torch.cat([o[k].to(torch.int16).reshape(-1)
+                             for k, _ in fields])
+            if not sparse:
+                return self._fetch_async(buf), None, 0, fields, key, 0
+            cap = spcaps.setdefault(key, 2048)
+            comb, comp = gop_ops.sparsify_buf(buf, cap)
+            return (self._fetch_async(comb), comp, buf.shape[0], fields, key,
+                    cap)
 
         def unpack(buf, fields):
             data, at = {}, 0
@@ -588,14 +753,34 @@ class H264Encoder:
                 at += cnt
             return data
 
+        delta = self._use_delta()
+        h16, w16, n_mb = 16 * nby, 16 * nbx, nby * nbx
+        if delta:
+            prev_tiles, src = self._delta_carry(n_mb)
+
         def upload(fi):
-            return [self._upload(p) for p in self._pad(*frames[fi])]
+            """Source frame ``fi`` as padded planes on the device: with
+            the delta upload its changed tiles applied to the carry (the
+            whole frame when there is no carry yet)."""
+            nonlocal src
+            pads = self._pad(*frames[fi])
+            if not delta or src is None:
+                planes = [self._upload(p) for p in pads]
+                if delta:
+                    self._tile_delta(pads, prev_tiles, full=True)
+                    src = gop_ops.source_tiles(*planes, h16, w16)
+                return planes
+            idx, tiles = self._upload_delta(
+                [self._tile_delta(pads, prev_tiles)], n_mb)
+            *src, y, u, v = gop_ops.delta_planes(*src, idx[0], tiles[0],
+                                                 h16, w16)
+            return y, u, v
 
         # ---- phase 1: dispatch the IDR, the anchors and the Bs ----
         t0 = time.perf_counter()
         iout, ikeys = self._rd_or_row_iframe(upload(0), qp_i, qpc_i)
         ifields = [(k, tuple(iout[k].shape)) for k in ikeys]
-        itok = pack(iout, ifields)
+        itok = pack(iout, ifields, "i")
         prev_a = 0
         prev_recon = (iout["recon_y"], iout["recon_u"], iout["recon_v"])
         t1 = time.perf_counter()
@@ -607,13 +792,13 @@ class H264Encoder:
                 *upload(a), *prev_recon, qp, qpc, search_range=sr_a,
                 deblock=cfg.deblock, subpel=subpel, t8=cfg.transform8,
                 parts=cfg.parts, intra_mbs=intra_p)
-            ptok = pack(pout, pfields)
+            ptok = pack(pout, pfields, "p")
             cur_recon = (pout["recon_y"], pout["recon_u"], pout["recon_v"])
             t1 = time.perf_counter()
             self.stage_s["p"] += t1 - t0
             btoks = [pack(gop_ops.encode_bframe(
                 *upload(d), *prev_recon, *cur_recon, qp_b, qpc_b, sr,
-                lam_for_qp(qp_b), subpel, cfg.deblock), bfields)
+                lam_for_qp(qp_b), subpel, cfg.deblock), bfields, "b")
                 for d in range(prev_a + 1, a)]
             self.stage_s["b"] += time.perf_counter() - t1
             segs.append((k, a, prev_a, ptok, btoks))
@@ -622,17 +807,25 @@ class H264Encoder:
         # ---- phase 2: fetch + host entropy, decode order ----
         out: list[tuple] = []
 
-        def fetch(tok, fields):
+        def fetch(tok):
+            token, comp, n, fields, key, cap = tok
             t = time.perf_counter()
-            data = unpack(tok.cpu().numpy(), fields)
+            buf = self._fetched(token)
+            if sparse:
+                buf, count = gop_ops.unsparsify_buf(buf, n, cap, comp)
+                if count > cap:
+                    # grow the sticky cap so that later GOPs fetch in one
+                    nc = (n + gop_ops.SP_K - 1) // gop_ops.SP_K
+                    spcaps[key] = min(gop_ops.fetch_bucket(
+                        2 * count, nc, base=2048), nc)
             self.stage_s["fetch"] += time.perf_counter() - t
-            return data
+            return unpack(buf, fields)
 
         def emit(nal, is_idr, disp):
             # the decode index of this sample is len(out)
             out.append((nal, is_idr, disp - len(out) + 1))
 
-        idata = fetch(itok, ifields)
+        idata = fetch(itok)
         t = time.perf_counter()
         emit(entropy.write_islice(
             self.sp, self.pp, frame_num=0,
@@ -642,7 +835,7 @@ class H264Encoder:
         self.stage_s["entropy"] += time.perf_counter() - t
 
         for k, a, seg_prev, ptok, btoks in segs:
-            pdata = fetch(ptok, pfields)
+            pdata = fetch(ptok)
             t = time.perf_counter()
             if cfg.parts:
                 pdata["mv"] = pdata["mv8"][::2, ::2]
@@ -652,7 +845,7 @@ class H264Encoder:
             col_zero, col_safe = _colocated(pdata, cfg.parts, intra_p)
             self.stage_s["entropy"] += time.perf_counter() - t
             for i, d in enumerate(range(seg_prev + 1, a)):
-                bdata = fetch(btoks[i], bfields)
+                bdata = fetch(btoks[i])
                 t = time.perf_counter()
                 bdata["col_zero"] = col_zero
                 if col_safe is not None:
@@ -665,6 +858,9 @@ class H264Encoder:
         self._recon = prev_recon
         self._frame_num = len(anchors)
         self.frame_index += n
+        # the next GOP's first frame deltas against this GOP's last upload
+        self._prev_tiles, self._src_dev = \
+            (prev_tiles, tuple(src)) if delta else (None, None)
         if self.rc:
             self.rc.update(n, sum(len(s[0]) for s in out))
         return out

@@ -10,7 +10,13 @@ the P-chunk loop (``lax.scan`` becomes a Python loop over device tensors,
 each frame predicting from the previous recon), and the sparse packing of
 each chunk's entropy inputs into compacted int16 rows, plus the sparse
 IDR packing. The host-side unpackers turn the fetched rows back into the
-dense dicts the slice writers take. The B step (``encode_bframe``:
+dense dicts the slice writers take. What crosses the bus: each P chunk's
+outputs as one buffer (``combine_fetch`` / ``split_fetch``), the source
+as changed 16x16 tiles against a device-resident MB-tiled carry
+(``tile_delta`` on the host, ``encode_pchunk_delta``,
+``encode_iframe_delta``, ``delta_planes``), and the B GOP's buffers as
+their nonzero 16-word chunks (``sparsify_buf`` / ``unsparsify_buf``).
+The B step (``encode_bframe``:
 search against both anchors, the frame-dominant vector of each list, an
 RD mode decision per MB, two-list deblock) shares the search, chroma MC
 and residual code with the P step.
@@ -586,6 +592,244 @@ def encode_iframe_sparse(y, u, v, qp: int, qpc: int, deblock: bool = False):
             out["recon_y"], out["recon_u"], out["recon_v"])
 
 
+def fetch_bucket(count: int, cap: int, base: int = 4096) -> int:
+    """Round a compacted-row count up to a fetch bucket: ``base`` doubled
+    until it holds ``count``, at most ``cap``."""
+    k = base
+    while k < count:
+        k *= 2
+    return min(k, cap)
+
+
+def combine_fetch(bitmap, counts, meta, payload, mcap: int, pcap: int):
+    """One P chunk's sparse outputs as ONE flat int16 tensor: [counts as 4
+    words | bitmap | meta[:mcap] | payload[:pcap]], so that the chunk
+    crosses the bus in one copy. The caps are the encoder's sticky ones;
+    rows past them (an overflow) are fetched apart."""
+    return torch.cat([
+        counts.to(torch.int32).contiguous().view(torch.int16).reshape(-1),
+        bitmap.reshape(-1),
+        meta[:mcap].reshape(-1),
+        payload[:pcap].reshape(-1),
+    ])
+
+
+def split_fetch(arr: np.ndarray, f: int, n_mb: int, mcap: int, pcap: int):
+    """Host inverse of ``combine_fetch``: (mcount, bcount, bitmap (f, nW),
+    meta (mcap, 16), payload (pcap, 384)). Meta / payload rows past the
+    counts are not data: ``unpack_sparse_chunk`` reads only the first
+    mcount / bcount rows."""
+    mcount, bcount = (int(x) for x in
+                      np.ascontiguousarray(arr[:4]).view(np.int32))
+    nw = (n_mb + 15) // 16
+    o = 4
+    bitmap = arr[o:o + f * nw].reshape(f, nw)
+    o += f * nw
+    meta = arr[o:o + mcap * 16].reshape(mcap, 16)
+    o += mcap * 16
+    payload = arr[o:o + pcap * MB_PAYLOAD].reshape(pcap, MB_PAYLOAD)
+    return mcount, bcount, bitmap, meta, payload
+
+
+# ---------------------------------------------------------------------------
+# Conditional-replenishment source upload (delta tiles)
+# ---------------------------------------------------------------------------
+#
+# The host uploads only the 16x16 macroblock tiles that changed since the
+# previous source frame, and the device carries the source across the GOP
+# MB-tiled: luma (nMB, 256) + chroma 2x (nMB, 64) uint8, so a frame update
+# is one scatter per plane. Tiles are copied verbatim, so the encode is
+# bit-exact; content where every tile changes costs the dense bytes plus
+# a 4-byte index per MB.
+TILE_WORDS = 384  # 256 luma + 64 cb + 64 cr bytes per MB
+
+
+def tiles_from_planes_host(yp: np.ndarray, up: np.ndarray,
+                           vp: np.ndarray) -> np.ndarray:
+    """(padded uint8 planes) → (nMB, 384) uint8 MB tiles (the plain
+    reference of the native pass)."""
+    h, w = yp.shape
+    mby, mbx = h // 16, w // 16
+    yt = yp.reshape(mby, 16, mbx, 16).swapaxes(1, 2).reshape(-1, 256)
+    ut = up.reshape(mby, 8, mbx, 8).swapaxes(1, 2).reshape(-1, 64)
+    vt = vp.reshape(mby, 8, mbx, 8).swapaxes(1, 2).reshape(-1, 64)
+    return np.concatenate([yt, ut, vt], axis=1)
+
+
+def delta_tiles_host(prev_tiles: np.ndarray,
+                     cur_tiles: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Changed MBs between consecutive source frames (plain reference):
+    (idx (K,) int32, tiles (K, 384) uint8)."""
+    changed = (prev_tiles != cur_tiles).any(axis=1)
+    idx = np.nonzero(changed)[0].astype(np.int32)
+    return idx, cur_tiles[idx]
+
+
+def tile_delta(yp: np.ndarray, up: np.ndarray, vp: np.ndarray,
+               prev: np.ndarray, full: bool = False):
+    """Tile gather + changed-MB delta against the carried host tiles, in
+    one native sweep (``native/tiles.cpp``). ``prev`` ((nMB, 384) uint8)
+    is updated IN PLACE to the current frame's tiles; ``full`` treats
+    every MB as changed. Returns (idx (K,) int32, tiles (K, 384) uint8).
+    The host library builds or raises; there is no numpy fallback."""
+    import ctypes
+
+    from ...native import get_lib
+    lib = get_lib()
+    h, w = yp.shape
+    n_mb = (h // 16) * (w // 16)
+    if prev.shape != (n_mb, TILE_WORDS) or prev.dtype != np.uint8 \
+            or not prev.flags.c_contiguous:
+        raise ValueError(f"prev must be C-contiguous uint8 ({n_mb}, "
+                         f"{TILE_WORDS}), got {prev.dtype} {prev.shape}")
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    idx = np.empty(n_mb, np.int32)
+    tiles = np.empty((n_mb, TILE_WORDS), np.uint8)
+    ya, ua, va = (np.ascontiguousarray(p, np.uint8) for p in (yp, up, vp))
+    k = lib.vcp_tile_delta(
+        ya.ctypes.data_as(u8p), ua.ctypes.data_as(u8p),
+        va.ctypes.data_as(u8p), h, w, prev.ctypes.data_as(u8p),
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        tiles.ctypes.data_as(u8p), 1 if full else 0)
+    return idx[:k], tiles[:k]
+
+
+def delta_bucket(k: int, n_mb: int) -> int:
+    """Round a tile count up to a bucket: 128 times a power of 4, at most
+    n_mb (a few upload shapes; at most 4x padding of a small delta)."""
+    b = 128
+    while b < k:
+        b *= 4
+    return min(b, n_mb)
+
+
+def pad_delta(idx: np.ndarray, tiles: np.ndarray, bucket: int, n_mb: int):
+    """Pad (idx, tiles) to ``bucket`` rows; padding rows take index n_mb,
+    which the device scatter discards (``_apply_tiles``)."""
+    k = idx.shape[0]
+    if k == bucket:
+        return idx, tiles
+    pidx = np.full(bucket, n_mb, np.int32)
+    pidx[:k] = idx
+    ptiles = np.zeros((bucket, TILE_WORDS), np.uint8)
+    ptiles[:k] = tiles
+    return pidx, ptiles
+
+
+def _apply_tiles(sy, su, sv, idx_f, t):
+    """Scatter one frame's delta tiles into the carried MB-tiled source;
+    returns new tensors. Each plane's scatter runs on a copy with one sink
+    row past the nMB rows, where the padding index nMB lands, and the sink
+    is cut off again (XLA's scatter ``mode="drop"``): no mask, so no host
+    sync on the data-dependent tile count."""
+    idx = idx_f.long()
+    out = []
+    for s, lo, hi in ((sy, 0, 256), (su, 256, 320), (sv, 320, 384)):
+        ext = torch.cat([s, s[:1]])
+        ext[idx] = t[:, lo:hi]
+        out.append(ext[:-1])
+    return tuple(out)
+
+
+def _tiled_to_planes(sy, su, sv, n_mby: int, n_mbx: int):
+    """The MB-tiled source back to padded planes (uint8)."""
+    y = sy.reshape(n_mby, n_mbx, 16, 16).permute(0, 2, 1, 3) \
+        .reshape(n_mby * 16, n_mbx * 16)
+    u = su.reshape(n_mby, n_mbx, 8, 8).permute(0, 2, 1, 3) \
+        .reshape(n_mby * 8, n_mbx * 8)
+    v = sv.reshape(n_mby, n_mbx, 8, 8).permute(0, 2, 1, 3) \
+        .reshape(n_mby * 8, n_mbx * 8)
+    return y, u, v
+
+
+def source_tiles(yp, up, vp, h: int, w: int):
+    """Padded planes on the device → the MB-tiled source carry (a GOP's
+    first frame, uploaded whole)."""
+    n_mby, n_mbx = h // 16, w // 16
+    sy = yp.reshape(n_mby, 16, n_mbx, 16).permute(0, 2, 1, 3) \
+        .reshape(-1, 256)
+    su = up.reshape(n_mby, 8, n_mbx, 8).permute(0, 2, 1, 3).reshape(-1, 64)
+    sv = vp.reshape(n_mby, 8, n_mbx, 8).permute(0, 2, 1, 3).reshape(-1, 64)
+    return sy, su, sv
+
+
+def delta_planes(sy, su, sv, idx, tiles, h: int, w: int):
+    """Apply one frame's delta tiles to the carried source: (sy', su',
+    sv', y, u, v), the new carry and the padded uint8 planes (the B-GOP
+    upload)."""
+    sy, su, sv = _apply_tiles(sy, su, sv, idx, tiles)
+    return (sy, su, sv, *_tiled_to_planes(sy, su, sv, h // 16, w // 16))
+
+
+def encode_pchunk_delta(sy, su, sv, idx, tiles, ref_y, ref_u, ref_v,
+                        qp: int, qpc: int, sr: int, lam: int, h: int, w: int,
+                        deblock: bool = False, subpel: int = 1,
+                        t8: bool = False):
+    """``encode_pchunk_sparse`` fed by delta tiles: sy / su / sv the
+    carried source (the previous frame), idx (N, K) int32 changed-MB
+    indices (nMB = padding), tiles (N, K, 384) uint8. Per frame one
+    scatter and one untile, then the P step from the previous recon.
+    Returns (bitmap, counts, meta, payload, sy', su', sv', recon_y / u / v
+    int32 of the last frame)."""
+    n_mby, n_mbx = h // 16, w // 16
+    ry, ru, rv = (a.to(torch.int32) for a in (ref_y, ref_u, ref_v))
+    out = []
+    for k in range(idx.shape[0]):
+        sy, su, sv = _apply_tiles(sy, su, sv, idx[k], tiles[k])
+        cy, cu, cv = (p.to(torch.int32)
+                      for p in _tiled_to_planes(sy, su, sv, n_mby, n_mbx))
+        packed, ry, ru, rv = _pstep(cy, cu, cv, ry, ru, rv, qp, qpc, sr,
+                                    lam, subpel=subpel, deblock=deblock,
+                                    t8=t8)
+        out.append(packed)
+    bitmap, counts, meta, payload = _sparsify_packed(
+        torch.stack(out), idx.shape[0], n_mby * n_mbx, n_mbx)
+    return bitmap, counts, meta, payload, sy, su, sv, ry, ru, rv
+
+
+def encode_iframe_delta(sy, su, sv, idx, tiles, qp: int, qpc: int, h: int,
+                        w: int, deblock: bool = False):
+    """``encode_iframe_sparse`` fed by delta tiles against the carried
+    source (an IDR that opens a later GOP): its outputs and the new carry,
+    (meta, count, blocks, sy', su', sv', recon_y / u / v)."""
+    sy, su, sv = _apply_tiles(sy, su, sv, idx, tiles)
+    y, u, v = _tiled_to_planes(sy, su, sv, h // 16, w // 16)
+    meta, count, blocks, ry, ru, rv = encode_iframe_sparse(y, u, v, qp, qpc,
+                                                          deblock)
+    return meta, count, blocks, sy, su, sv, ry, ru, rv
+
+
+# ---------------------------------------------------------------------------
+# Word-sparse fetch (the B-GOP buffers)
+# ---------------------------------------------------------------------------
+#
+# A B GOP's per-frame buffers pack many fields with no fixed per-MB
+# layout, so ``_sparsify_packed`` does not apply. This is the
+# layout-agnostic form: the int16 buffer as 16-word chunks, only the
+# nonzero chunks shipped, [count | chunk bitmap | compacted chunks] in one
+# buffer.
+SP_K = 16  # words per sparsity chunk (one 4x4 block)
+
+
+def sparsify_buf(buf, cap: int):
+    """(n,) int16 → (combined, comp): combined = [nonzero-chunk count as
+    2 words | chunk bitmap | comp[:cap] rows], flat int16; comp, all the
+    compacted chunks, stays on the device for an overflow tail."""
+    n = buf.shape[0]
+    pad = (-n) % SP_K
+    if pad:
+        buf = torch.cat([buf, buf.new_zeros(pad)])
+    chunks = buf.reshape(-1, SP_K)
+    flags = (chunks != 0).any(dim=-1)
+    count, comp = _compact_rows(flags, chunks)
+    combined = torch.cat([
+        count.reshape(1).view(torch.int16),
+        _flag_words(flags[None, :])[0],
+        comp[:cap].reshape(-1),
+    ])
+    return combined, comp
+
+
 # ---------------------------------------------------------------------------
 # Host-side unpackers (numpy; copies of vcp_tpu's)
 # ---------------------------------------------------------------------------
@@ -619,6 +863,23 @@ def _unpack_bits(words: np.ndarray, nbits: int) -> np.ndarray:
     u8 = np.ascontiguousarray(words).astype(np.uint16).view(np.uint8)
     return np.unpackbits(u8, bitorder="little",
                          axis=-1)[..., :nbits].astype(bool)
+
+
+def unsparsify_buf(arr: np.ndarray, n: int, cap: int, comp=None):
+    """Host inverse of ``sparsify_buf``: the dense (n,) int16 buffer and
+    the chunk count. When the count passed ``cap``, the tail rows are
+    fetched from the device-resident ``comp`` in one copy."""
+    count = int(np.ascontiguousarray(arr[:2]).view(np.int32)[0])
+    nchunks = (n + SP_K - 1) // SP_K
+    nw = (nchunks + 15) // 16
+    flags = _unpack_bits(arr[2:2 + nw].reshape(1, nw), nchunks)[0]
+    k = min(count, cap)
+    rows = arr[2 + nw:2 + nw + k * SP_K].reshape(k, SP_K)
+    if count > cap:
+        rows = np.concatenate([rows, comp[cap:count].cpu().numpy()])
+    out = np.zeros((nchunks, SP_K), np.int16)
+    out[flags] = rows
+    return out.reshape(-1)[:n], count
 
 
 def unpack_sparse_chunk(bitmap_h: np.ndarray, meta_h: np.ndarray,

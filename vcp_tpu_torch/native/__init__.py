@@ -1,6 +1,6 @@
 """Host C++ library: the encoder's CABAC and CAVLC slice writers and NAL
-escaping, and the host decoder's deblocking filter, CABAC slice parser and
-reconstruction.
+escaping, its changed-tile pass of the delta upload, and the host
+decoder's deblocking filter, CABAC slice parser and reconstruction.
 
 ``get_lib()`` builds the sources (``build.SOURCES``) with g++ on first
 use into ``vcp_tpu_torch/_build/`` and returns the loaded library. These
@@ -84,6 +84,11 @@ def _load() -> ctypes.CDLL:
         u8p, u8p,                       # col_zero, col_safe
         i32p, i32p, i32p, i32p, i32p,   # luma + chroma arrays
         u8p, i64]
+    # the delta upload's changed-tile pass (tiles.cpp)
+    lib.vcp_tile_delta.restype = i32
+    lib.vcp_tile_delta.argtypes = [
+        u8p, u8p, u8p, i32, i32,        # y, u, v planes, H, W
+        u8p, i32p, u8p, i32]            # prev (in place), idx, tiles, full
     # host decoder (deblock.cpp, h264parse.cpp, h264recon.cpp)
     i8p = ctypes.POINTER(ctypes.c_int8)
     lib.vcp_parse_slice_cabac.restype = i64

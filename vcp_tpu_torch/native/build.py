@@ -1,5 +1,6 @@
 """Build the host library: the CABAC and CAVLC slice writers and NAL
-escaping of the encoder (``cabac.cpp``, ``entropy.cpp``) and the host
+escaping of the encoder (``cabac.cpp``, ``entropy.cpp``), the encoder's
+changed-tile pass of the delta upload (``tiles.cpp``) and the host
 decoder's deblocking filter, CABAC slice parser and reconstruction
 (``deblock.cpp``, ``h264parse.cpp``, ``h264recon.cpp``).
 
@@ -23,8 +24,8 @@ import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
-SOURCES = ("cabac.cpp", "entropy.cpp", "deblock.cpp", "h264parse.cpp",
-           "h264recon.cpp")
+SOURCES = ("cabac.cpp", "entropy.cpp", "tiles.cpp", "deblock.cpp",
+           "h264parse.cpp", "h264recon.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
