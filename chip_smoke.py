@@ -117,6 +117,20 @@ Phase 4 holds two consecutive 3-frame GOPs of the static content (the
 second IDR a delta) between ``cuda`` and ``cpu``, and phase 5 profiles
 its 9-frame GOP with the delta upload and without.
 
+Phase 3h decodes phase 3's ``h264-cpu`` MP4 in two spawned children
+beside the later phases, natively and under ``VCP_NO_NATIVE=1`` (the
+Python CABAC parsers, the numpy reconstruction and deblock): the frames
+must be equal. ``--nonative-only`` runs it after encoding on the card
+without the C++ library: each path beside its native twin on the same
+frames, the twin first, with equal NAL units and equal launches of every
+kernel; ``-p h264-nvenc`` on 3 frames and ``VCP_CABAC=0 -p h264-nvenc``
+on 2 under ``VCP_NO_NATIVE=1`` (the Python CABAC and CAVLC writers, the
+numpy tile pass), and ``-p h264-cpu`` on the 5-frame B GOP (i8 IDR,
+partitions and the intra overlay, B pictures), whose MP4 it decodes. It
+logs the host seconds of each slice writer call and of the tile pass
+both ways: a check of the C++ writers against their Python twins at
+1080p, for a change to either.
+
 It checks each MP4 (with the composition offsets of B streams), checks
 that the quality paths used the tools they add (quarter-pel vectors on
 the hq path), decodes the ``h264-cpu`` MP4 with the port's host decoder
@@ -139,7 +153,8 @@ hq path from 12 frames); neither prints a result line.
 ``--cavlc-only`` runs phase 3e and its phase-4 GOP alone and prints no
 result; ``--mesh-only`` runs the band checks of phase 2, phase 3f and
 its phase-4 and phase-5 work and prints no result; so does
-``--bus-only`` for phase 3g. ``--control-only`` runs phase 3d alone on a
+``--bus-only`` for phase 3g and ``--nonative-only`` for phase 3h.
+``--control-only`` runs phase 3d alone on a
 fresh 40-frame Y4M
 and its own MP4 + AAC and ends with the same last line. Imports nothing of JAX
 or of ``vcp_tpu``.
@@ -2658,6 +2673,163 @@ def run_bus_phase5() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3h: the host paths without the C++ library
+# ---------------------------------------------------------------------------
+
+NONATIVE = {"VCP_NO_NATIVE": "1"}
+# (label, frames, CLI arguments, settings of both twins); the frames are
+# the first of the speed path's content, or the B GOP's for h264-cpu
+NONATIVE_PATHS = (
+    ("nonative-nvenc", 3, ["-p", "h264-nvenc"], {}),
+    ("nonative-cavlc", 2, ["-p", "h264-nvenc"], {"VCP_CABAC": "0"}),
+    ("nonative-cpu", B_FRAMES, ["-p", "h264-cpu"], {}),
+)
+# the two decodes of an h264-cpu MP4, each in its own child
+DECODE_WAYS = {"native": {}, "nonative": NONATIVE}
+
+
+@contextlib.contextmanager
+def observe_host_writers(seen: dict):
+    """While active, the host seconds of every slice writer call by slice
+    type (``entropy.write_islice`` / ``write_pslice``,
+    ``bframe.write_bslice``: the native writers, or under
+    ``VCP_NO_NATIVE=1`` the Python ones) and of the delta upload's tile
+    pass (``gop_ops.tile_delta``)."""
+    from vcp_tpu_torch.codec.h264 import bframe, entropy, gop_ops
+    hooks = [(entropy, "write_islice", "I"), (entropy, "write_pslice", "P"),
+             (bframe, "write_bslice", "B"), (gop_ops, "tile_delta", "tiles")]
+    real = [getattr(m, k) for m, k, _ in hooks]
+
+    def timer(key, fn):
+        def call(*a, **kw):
+            t = time.monotonic()
+            out = fn(*a, **kw)
+            seen.setdefault(key, []).append(time.monotonic() - t)
+            return out
+        return call
+
+    for (m, k, key), fn in zip(hooks, real):
+        setattr(m, k, timer(key, fn))
+    try:
+        yield seen
+    finally:
+        for (m, k, _), fn in zip(hooks, real):
+            setattr(m, k, fn)
+
+
+def _per_call(seen: dict) -> str:
+    return ", ".join(
+        f"{k} {sum(v) / len(v):.4f} s x{len(v)}" for k, v in seen.items())
+
+
+def decode_digests(path: str, env: dict) -> tuple:
+    """Decode an MP4 with the port's host decoder under the settings
+    ``env`` (in a spawned child: the switches are read per picture):
+    (per-frame sha256 of the Y, U, V planes, host seconds)."""
+    import hashlib
+
+    from vcp_tpu_torch.codec.ingest import open_video
+    with scoped_env(env):
+        t0 = time.monotonic()
+        frames = list(open_video(path).frames)
+        dt = time.monotonic() - t0
+    return [hashlib.sha256(b"".join(np.ascontiguousarray(p).tobytes()
+                                    for p in f)).hexdigest()
+            for f in frames], dt
+
+
+def submit_nonative_decodes(path: str) -> tuple:
+    """Start the decodes of ``path`` (``DECODE_WAYS``) in spawned
+    children, beside the card's later work: (pool, {way:
+    future}, directory of the copy)."""
+    import concurrent.futures
+    import multiprocessing
+    import shutil
+    keep = tempfile.mkdtemp(prefix="nonative_decode_")
+    copy = os.path.join(keep, os.path.basename(path))
+    shutil.copyfile(path, copy)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(DECODE_WAYS), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {way: pool.submit(decode_digests, copy, env)
+                  for way, env in DECODE_WAYS.items()}, keep
+
+
+def finish_nonative_decodes(job, n_frames: int) -> None:
+    """Wait for the decodes: the same frames every way."""
+    import shutil
+    pool, futures, keep = job
+    t0 = time.monotonic()
+    try:
+        got = {way: f.result() for way, f in futures.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(keep, ignore_errors=True)
+    for way, (digests, dt) in got.items():
+        log(f"  h264-cpu decode {way} {DECODE_WAYS[way]}: "
+            f"{len(digests)} frames in {dt:.3f} s ({dt / len(digests):.3f} "
+            f"s per frame)")
+    ref = got["native"][0]
+    log(f"  h264-cpu decodes: waited {time.monotonic() - t0:.1f} s; "
+        "frames equal to the native decode's: "
+        f"{ {w: d == ref for w, (d, _) in got.items()} }")
+    if len(ref) != n_frames or any(d != ref for d, _ in got.values()):
+        raise AssertionError("h264-cpu: the decodes differ")
+
+
+def run_nonative_encodes(tmp: str, frames, bq, by_path: dict) -> None:
+    """``--nonative-only``: each path of ``NONATIVE_PATHS`` through the
+    CLI on the card, natively and under ``VCP_NO_NATIVE=1`` (the Python
+    and NumPy host paths; the device work is the same): equal NAL units
+    and equal launches of every kernel, kernels 1, 3 and 4 launched.
+    Logs the host seconds per frame of each slice writer and of the tile
+    pass, both ways."""
+    for label, n, cli_args, env in NONATIVE_PATHS:
+        b_gop = label == "nonative-cpu"
+        fr = bq if b_gop else frames[:n]
+        cts = gop_cts(n, 2) if b_gop else None
+        kernels = ("deblock_fast", "deblock_general") if b_gop else (
+            "motion_search", "deblock_fast", "deblock_general")
+        timing, samples = {}, {}
+        for lab, extra in ((f"{label}-native", {}), (label, NONATIVE)):
+            seen: dict = {}
+            with observe_host_writers(seen):
+                by_path[lab], _ = run_main_path(
+                    lab, fr, tmp, cli_args, [0], kernels,
+                    env={**env, **extra}, cts=cts)
+            timing[lab] = seen
+            samples[lab] = video_samples(os.path.join(tmp, f"{lab}.mp4"))
+            log(f"  {lab}: host s per call {_per_call(seen)}")
+        twin = f"{label}-native"
+        same = samples[label] == samples[twin]
+        log(f"  {label}: NAL units == {twin}'s: {same}; launches "
+            f"{by_path[label]} (native {by_path[twin]})")
+        if not same or by_path[label] != by_path[twin]:
+            raise AssertionError(f"{label}: stream or launches differ from "
+                                 "the native twin's")
+        if label == "nonative-cavlc" and not cavlc_mp4(
+                os.path.join(tmp, f"{label}.mp4")):
+            raise AssertionError(f"{label}: not a CAVLC stream")
+
+
+def run_nonative_only(t_start: float) -> int:
+    """``--nonative-only``: the encodes without the C++ library and
+    phase 3h's decodes of their ``h264-cpu`` MP4; prints no result."""
+    frames = synth_frames(H, W, 3, 3)
+    bq = synth_frames_subpel(H, W, B_FRAMES, B_FRAMES)
+    by_path: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log("phase 3h: the host paths without the C++ library "
+            f"({time.monotonic() - t_start:.1f} s)")
+        run_nonative_encodes(tmp, frames, bq, by_path)
+        job = submit_nonative_decodes(os.path.join(tmp, "nonative-cpu.mp4"))
+        finish_nonative_decodes(job, B_FRAMES)
+    log(f"nonative phase done at {time.monotonic() - t_start:.1f} s; "
+        f"launches {by_path}")
+    print("nonative only: no result")
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: cuda vs cpu on one GOP of each path
 # ---------------------------------------------------------------------------
 
@@ -3091,6 +3263,8 @@ def main(argv: list[str]) -> int:
                              t_start)
     if "--bus-only" in argv:
         return run_bus_only(t_start)
+    if "--nonative-only" in argv:
+        return run_nonative_only(t_start)
 
     log("phase 2: kernels vs plain versions at 1088x1920")
     rows = [*check_motion(dev, HP, W, reps=20),
@@ -3192,6 +3366,9 @@ def main(argv: list[str]) -> int:
         run_mesh(tmp, frames, bq, by_path)
         log(f"phase 3g: the bus ({time.monotonic() - t_start:.1f} s)")
         run_bus(tmp, frames, by_path)
+        log("phase 3h: decodes without the C++ library, beside the "
+            f"later phases ({time.monotonic() - t_start:.1f} s)")
+        nonative_decodes = submit_nonative_decodes(cpu_mp4)
 
     log(f"phase 4: one GOP, cuda vs cpu ({time.monotonic() - t_start:.1f} "
         "s)")
@@ -3210,6 +3387,7 @@ def main(argv: list[str]) -> int:
     profile_hevc("h265-cpu", hframes[:3], BUILTIN_PRESETS["h265-cpu"])
     run_bus_phase5()
     finish_decodes(decodes)
+    finish_nonative_decodes(nonative_decodes, B_FRAMES)
 
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]

@@ -78,7 +78,8 @@ def test_no_jax_or_vcp_tpu_imports():
     """Importing every module of the port, and chip_smoke.py, pulls in
     neither jax nor vcp_tpu; neither does a host decode of an H.264
     stream (the decoder, its native parser and reconstruction, the host
-    deblock), an AAC encode, a resize, an HEVC encode of IDR + P (row
+    deblock; and under ``VCP_NO_NATIVE=1`` its Python parsers, NumPy
+    reconstruction and NumPy deblock), an AAC encode, a resize, an HEVC encode of IDR + P (row
     and RD intra), its validation decode, a foreign HEVC decode or a copy
     task from a producer through the port's mini-redis to a consumer."""
     code = (
@@ -91,6 +92,10 @@ def test_no_jax_or_vcp_tpu_imports():
         "from vcp_tpu_torch.codec.h264.decoder import H264Decoder\n"
         f"data = open({GOLDEN!r}, 'rb').read()\n"
         "assert len(H264Decoder().decode_annexb(data)) == 24\n"
+        "import os\n"
+        "os.environ['VCP_NO_NATIVE'] = '1'\n"
+        "assert len(H264Decoder().decode_annexb(data)) == 24\n"
+        "del os.environ['VCP_NO_NATIVE']\n"
         "import numpy, torch\n"
         "from vcp_tpu_torch.codec.aac import AacEncoder\n"
         "from vcp_tpu_torch.ops.scale import bilinear_resize\n"
@@ -151,6 +156,10 @@ def test_no_jax_or_vcp_tpu_imports():
         " 'vcp_tpu_torch.codec.h264.native_parse',"
         " 'vcp_tpu_torch.codec.h264.native_recon',"
         " 'vcp_tpu_torch.ops.deblock_host',"
+        " 'vcp_tpu_torch.codec.h264.cabac_syntax',"
+        " 'vcp_tpu_torch.codec.h264.inter_cabac',"
+        " 'vcp_tpu_torch.codec.h264.inter_recon',"
+        " 'vcp_tpu_torch.ops.color',"
         " 'vcp_tpu_torch.codec.cabac',"
         " 'vcp_tpu_torch.codec.h265.ctx',"
         " 'vcp_tpu_torch.codec.h265.residual',"

@@ -5,8 +5,10 @@ between P anchors, one reference per list (L0 = past anchor, L1 = future
 anchor), mb types B_L0_16x16 / B_L1_16x16 / B_Bi_16x16 with explicit
 MVs, B_Skip / B_Direct_16x16 by spatial direct prediction, non-reference
 (nal_ref_idc 0). A CABAC slice runs the C++ writer
-``vcp_write_bslice_cabac`` in ``vcp_tpu_torch.native``, a CAVLC slice the
-Python writer ``cavlc_writer.write_bslice``, as in ``vcp_tpu``.
+``vcp_write_bslice_cabac`` in ``vcp_tpu_torch.native`` (under
+``VCP_NO_NATIVE=1`` its Python twin ``cabac_syntax.write_bslice_cabac``),
+a CAVLC slice the Python writer ``cavlc_writer.write_bslice``, as in
+``vcp_tpu``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ def write_bslice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
         return cavlc_writer.write_bslice(sp, pp, frame_num=frame_num, qp=qp,
                                          data=data, deblock=deblock,
                                          poc_lsb=poc_lsb)
+    if native.disabled():
+        from .cabac_syntax import write_bslice_cabac
+        return write_bslice_cabac(sp, pp, frame_num=frame_num, qp=qp,
+                                  data=data, deblock=deblock,
+                                  poc_lsb=poc_lsb)
     lib = native.get_lib()
     n_mby, n_mbx = sp.mb_height, sp.mb_width
     mode = np.ascontiguousarray(data["mode"], np.int32)

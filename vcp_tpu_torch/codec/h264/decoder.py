@@ -22,7 +22,11 @@ native_parse (native/h264parse.cpp); general CAVLC inter MB parse in
 pframe_dec/bframe_dec; reference lists / marking / weights in refpic;
 MV prediction in mvpred; whole-picture inter reconstruction, and the
 intra MBs of CABAC slices, in native_recon (native/h264recon.cpp);
-the intra MBs of CAVLC slices reconstruct in numpy here.
+the intra MBs of CAVLC slices reconstruct in numpy here. Under
+``VCP_NO_NATIVE=1``, read per picture, CABAC slices parse in Python
+(cabac_syntax, inter_cabac), pictures reconstruct in numpy
+(inter_recon, and every intra MB here) and deblock in numpy
+(ops.deblock_host).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import dataclasses
 
 import numpy as np
 
+from ... import native
 from ...ops import transform as tf
 from ...utils.bitstream import BitReader, emulation_remove
 from ..mp4 import split_annexb
@@ -405,15 +410,20 @@ class H264Decoder:
 
         n_mbs = sp.mb_width * sp.mb_height
         nat_res = None              # native parse result (CABAC slices)
+        host_py = native.disabled()     # the Python parse, NumPy recon
         if pp.cabac:
             from . import native_parse as NP
             br.byte_align()                 # cabac_alignment_one_bit(s)
             payload = rbsp[br.pos // 8:]
-            if is_i:
+            if host_py:
+                self._parse_cabac_py(ctx, payload, qp, is_i, is_b,
+                                     cabac_init_idc,
+                                     i_rows if is_i else None,
+                                     None if is_i else intra_queue)
+            elif is_i:
                 nat_res = NP.parse_slice_native(
                     payload, qp, 2, 0, sp.mb_height, sp.mb_width,
                     pp.transform_8x8)
-                intra_mb[:, :] = True
                 nz_y.nz[:, :] = nat_res["cbf_l4"]
                 nz_cb.nz[:, :] = nat_res["cbf_cb"]
                 nz_cr.nz[:, :] = nat_res["cbf_cr"]
@@ -423,6 +433,8 @@ class H264Decoder:
             else:
                 nat_res = NP.parse_inter_slice(ctx, payload, qp, is_b,
                                                cabac_init_idc)
+            if is_i:
+                intra_mb[:, :] = True
         else:
             if is_b:
                 self._decode_mbs_b_cavlc(ctx, n_mbs, intra_queue)
@@ -433,7 +445,11 @@ class H264Decoder:
 
         from . import native_recon as NR
         if is_p or is_b:
-            NR.recon_inter_native(ctx)
+            if host_py:
+                from . import inter_recon
+                inter_recon.recon_inter_frame(ctx)
+            else:
+                NR.recon_inter_native(ctx)
         if nat_res is not None:
             NR.recon_intra_native(y, u, v, sp.mb_width, nat_res,
                                   pp.chroma_qp_index_offset)
@@ -541,6 +557,36 @@ class H264Decoder:
                         axis=(1, 3))).sum()),
                 "n_mb": int(im.size),
             })
+
+    def _parse_cabac_py(self, ctx, payload: bytes, qp: int, is_i: bool,
+                        is_b: bool, init_idc: int, i_rows: list | None,
+                        intra_queue: list | None) -> None:
+        """Parse a CABAC slice with the Python parsers
+        (``VCP_NO_NATIVE=1``): an I slice into ``i_rows`` and the cbf /
+        QP / t8 grids, as ``vcp_tpu``'s decoder does; a P or B slice into
+        the ctx and ``intra_queue``."""
+        from . import cabac_syntax as CS
+        from . import inter_cabac
+        sp, pp = ctx["sp"], ctx["pp"]
+        try:
+            if not is_i:
+                inter_cabac.parse_inter_slice_cabac(ctx, payload, qp, is_b,
+                                                    init_idc, intra_queue)
+                return
+            rows, st = CS.parse_islice_cabac(
+                payload, qp, sp.mb_height, sp.mb_width,
+                transform_8x8=pp.transform_8x8)
+        except DecodeError:
+            raise
+        except ValueError as e:
+            raise DecodeError(str(e)) from e
+        i_rows[:] = rows
+        ctx["nz_y"].nz[:, :] = st.cbf_l4
+        ctx["nz_cb"].nz[:, :] = st.cbf_c4[0]
+        ctx["nz_cr"].nz[:, :] = st.cbf_c4[1]
+        ctx["qp_mb"][:, :] = [[e.get("qp", qp) for e in row] for row in rows]
+        if st.t8.any():
+            ctx["p_t8"] = st.t8     # 8x8 deblock edge semantics
 
     def _decode_mbs_cavlc(self, ctx, is_p, n_mbs, intra_queue, i_rows):
         br = ctx["br"]

@@ -11,7 +11,10 @@ P_8x8) on the 8x8 MV grid, and (CABAC) intra MBs (I16x16 / I_NxN) among
 them. The CABAC slices and the CAVLC IDR and P slices of 16x16 MBs with
 the 4x4 transform run the C++ writers in ``vcp_tpu_torch.native``; the
 other CAVLC P slices run the Python writer of ``cavlc_writer``, as in
-``vcp_tpu``. Each returns an Annex-B NAL.
+``vcp_tpu``. Under ``VCP_NO_NATIVE=1`` every slice takes its Python
+writer instead, as in ``vcp_tpu``: ``cabac_syntax`` for CABAC,
+``_write_islice_py`` for the CAVLC IDR and ``cavlc_writer`` for every
+CAVLC P slice. Each returns an Annex-B NAL.
 """
 
 from __future__ import annotations
@@ -21,8 +24,11 @@ import ctypes
 import numpy as np
 
 from ... import native
+from ...utils.bitstream import BitWriter, emulation_prevent, nal_unit
 from . import cavlc_writer
 from . import headers as H
+from .cavlc import encode_residual_block
+from .frame_ops import LUMA_BLK_ORDER
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -33,11 +39,17 @@ MB_TYPE_I_PCM = 25
 
 def _nal(lib, rbsp_buf: np.ndarray, rbsp_len: int, nal_type: int,
          nal_ref_idc: int) -> bytes:
-    out = np.empty(rbsp_len + rbsp_len // 2 + 16, np.uint8)
-    n = lib.vcp_escape(rbsp_buf.ctypes.data_as(_U8P), rbsp_len,
-                       out.ctypes.data_as(_U8P))
+    """Annex-B NAL of an RBSP: the native escape, or under
+    ``VCP_NO_NATIVE=1`` the Python one (``lib`` is then unused)."""
+    if native.disabled():
+        body = emulation_prevent(rbsp_buf[:rbsp_len].tobytes())
+    else:
+        out = np.empty(rbsp_len + rbsp_len // 2 + 16, np.uint8)
+        n = lib.vcp_escape(rbsp_buf.ctypes.data_as(_U8P), rbsp_len,
+                           out.ctypes.data_as(_U8P))
+        body = out[:n].tobytes()
     return (b"\x00\x00\x01" + bytes([(nal_ref_idc << 5) | nal_type])
-            + out[:n].tobytes())
+            + body)
 
 
 def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
@@ -49,6 +61,17 @@ def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
     I16x16-V; with "modes" / "cmodes" every MB carries its own; with an
     "i8" grid that flags any MB (CABAC only), those MBs are I_NxN with
     the 8x8 transform ("i8_modes", "i8_luma")."""
+    i8 = data.get("i8")
+    has_i8 = i8 is not None and bool(np.any(i8))
+    if has_i8 and not pp.cabac:
+        raise ValueError("I_NxN macroblocks need the CABAC writer")
+    kw = dict(frame_num=frame_num, idr_pic_id=idr_pic_id, qp=qp,
+              deblock=deblock, poc_lsb=poc_lsb)
+    if native.disabled():
+        if pp.cabac:
+            from .cabac_syntax import write_islice_cabac
+            return write_islice_cabac(sp, pp, data=data, **kw)
+        return _write_islice_py(sp, pp, data=data, **kw)
     lib = native.get_lib()
     n_mby, n_mbx = sp.mb_height, sp.mb_width
     cap = n_mby * n_mbx * 2048 + 4096
@@ -57,10 +80,6 @@ def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
             frame_num, idr_pic_id, 0 if deblock else 1,
             sp.log2_max_poc_lsb if sp.poc_type == 0 else 0, poc_lsb)
     luma_ac = data["luma_ac"]
-    i8 = data.get("i8")
-    has_i8 = i8 is not None and bool(np.any(i8))
-    if has_i8 and not pp.cabac:
-        raise ValueError("I_NxN macroblocks need the CABAC writer")
     if has_i8:
         # the writer reads an i8 MB's 4x64 scans from its luma_ac slot
         i8 = np.ascontiguousarray(i8, np.uint8)
@@ -90,6 +109,75 @@ def write_islice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
     if n < 0:
         raise RuntimeError("native islice buffer overflow")
     return _nal(lib, out, int(n), H.NAL_SLICE_IDR, 3)
+
+
+def _write_islice_py(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
+                     idr_pic_id: int, qp: int, data: dict,
+                     deblock: bool = False, poc_lsb: int = 0) -> bytes:
+    """The CAVLC IDR writer in Python (``vcp_tpu``'s ``_write_islice_py``),
+    the twin of the native ``vcp_write_islice``: every MB I16x16, with
+    the row pattern or the per-MB "modes" / "cmodes"."""
+    n_mby, n_mbx = sp.mb_height, sp.mb_width
+    bw = BitWriter()
+    H.write_slice_header(bw, sp, pp, is_idr=True, frame_num=frame_num,
+                         slice_qp=qp, idr_pic_id=idr_pic_id,
+                         disable_deblocking=not deblock, poc_lsb=poc_lsb)
+    nz_y, nz_cb, nz_cr = cavlc_writer._contexts(n_mby, n_mbx)
+    luma_dc, luma_ac = data["luma_dc"], data["luma_ac"]
+    cb_dc, cb_ac = data["cb_dc"], data["cb_ac"]
+    cr_dc, cr_ac = data["cr_dc"], data["cr_ac"]
+    modes, cmodes = data.get("modes"), data.get("cmodes")
+    for mby in range(n_mby):
+        # row 0 has no top neighbours: DC luma + DC chroma; rows 1..
+        # Vertical
+        pred_mode, chroma_mode = (2, 0) if mby == 0 else (0, 2)
+        for mbx in range(n_mbx):
+            if modes is not None:
+                pred_mode = int(modes[mby, mbx])
+                chroma_mode = int(cmodes[mby, mbx])
+            _write_i16_mb(bw, mbx, mby, luma_dc[mby, mbx], luma_ac[mby, mbx],
+                          (cb_dc[mby, mbx], cr_dc[mby, mbx]),
+                          (cb_ac[mby, mbx], cr_ac[mby, mbx]),
+                          nz_y, nz_cb, nz_cr, pred_mode, chroma_mode)
+    bw.rbsp_trailing_bits()
+    return nal_unit(H.NAL_SLICE_IDR, bw.to_bytes(), nal_ref_idc=3)
+
+
+def _write_i16_mb(bw, mbx, mby, z_dc, z_ac, chroma_dc, chroma_ac,
+                  nz_y, nz_cb, nz_cr, pred_mode: int, chroma_mode: int):
+    """One Intra_16x16 MB: mb_type, chroma pred mode, mb_qp_delta 0, then
+    the DC, the AC (when any), the chroma DC and AC blocks."""
+    cbp_luma15 = bool(np.any(z_ac[:, 1:]))
+    any_cac = bool(np.any(chroma_ac[0][:, 1:])) or \
+        bool(np.any(chroma_ac[1][:, 1:]))
+    any_cdc = bool(np.any(chroma_dc[0])) or bool(np.any(chroma_dc[1]))
+    cbp_chroma = 2 if any_cac else (1 if any_cdc else 0)
+    # the I slice mb_type of an I16x16 MB (Table 7-11)
+    bw.ue(1 + pred_mode + 4 * cbp_chroma + 12 * int(cbp_luma15))
+    bw.ue(chroma_mode)             # intra_chroma_pred_mode
+    bw.se(0)                       # mb_qp_delta
+    # Intra16x16DCLevel: nC from luma block (0, 0)'s neighbours
+    encode_residual_block(bw, [int(v) for v in z_dc],
+                          nz_y.nc(4 * mby, 4 * mbx))
+    for blk in range(16):
+        oy, ox = int(LUMA_BLK_ORDER[blk, 0]), int(LUMA_BLK_ORDER[blk, 1])
+        by, bx = 4 * mby + oy, 4 * mbx + ox
+        total = encode_residual_block(
+            bw, [int(v) for v in z_ac[blk, 1:]], nz_y.nc(by, bx)) \
+            if cbp_luma15 else 0
+        nz_y.set(by, bx, total)
+    if cbp_chroma:
+        for c in range(2):
+            encode_residual_block(bw, [int(v) for v in chroma_dc[c]], -1)
+    for c, nzc in ((0, nz_cb), (1, nz_cr)):
+        for blk in range(4):
+            oy = int(cavlc_writer.CHROMA_BLK_ORDER[blk, 0])
+            ox = int(cavlc_writer.CHROMA_BLK_ORDER[blk, 1])
+            by, bx = 2 * mby + oy, 2 * mbx + ox
+            total = encode_residual_block(
+                bw, [int(v) for v in chroma_ac[c][blk, 1:]], nzc.nc(by, bx)) \
+                if cbp_chroma == 2 else 0
+            nzc.set(by, bx, total)
 
 
 def _any(data: dict, key: str) -> bool:
@@ -161,17 +249,24 @@ def write_pslice(sp: H.SeqParams, pp: H.PicParams, *, frame_num: int,
     vectors "mv8" on the 8x8 grid) to the partition writer, the rest to
     the 16x16 writer. A CAVLC frame takes the native writer when it has
     neither partitions nor the 8x8 transform, else the Python writer
-    (intra MBs need CABAC)."""
+    (intra MBs need CABAC). Under ``VCP_NO_NATIVE=1`` a CABAC frame
+    goes to ``cabac_syntax``'s intra writer or its partition / 16x16
+    writer, a CAVLC frame to the Python writer."""
     n_mby, n_mbx = sp.mb_height, sp.mb_width
+    kw = dict(frame_num=frame_num, qp=qp, deblock=deblock, poc_lsb=poc_lsb)
     if not pp.cabac:
         if _any(data, "intra"):
             raise ValueError("intra macroblocks in a P slice need CABAC")
-        if _any(data, "parts") or _any(data, "t8") or pp.transform_8x8:
+        if native.disabled() or _any(data, "parts") or _any(data, "t8") \
+                or pp.transform_8x8:
             mv8_xy, parts = mv8_grid_xy(data, n_mby, n_mbx)
             return cavlc_writer.write_pslice(
-                sp, pp, frame_num=frame_num, qp=qp, data=data,
-                mv8_xy=mv8_xy, parts=parts, deblock=deblock,
-                poc_lsb=poc_lsb)
+                sp, pp, data=data, mv8_xy=mv8_xy, parts=parts, **kw)
+    elif native.disabled():
+        from . import cabac_syntax
+        writer = cabac_syntax.write_pslice_cabac_intra \
+            if _any(data, "intra") else cabac_syntax.write_pslice_cabac
+        return writer(sp, pp, data=data, **kw)
     lib = native.get_lib()
     cap = n_mby * n_mbx * 2048 + 4096
     out = np.empty(cap, np.uint8)

@@ -671,17 +671,28 @@ def tile_delta(yp: np.ndarray, up: np.ndarray, vp: np.ndarray,
     one native sweep (``native/tiles.cpp``). ``prev`` ((nMB, 384) uint8)
     is updated IN PLACE to the current frame's tiles; ``full`` treats
     every MB as changed. Returns (idx (K,) int32, tiles (K, 384) uint8).
-    The host library builds or raises; there is no numpy fallback."""
+    The host library builds or raises; under ``VCP_NO_NATIVE=1`` the
+    numpy pair ``tiles_from_planes_host`` + ``delta_tiles_host`` runs
+    instead, as in ``vcp_tpu``."""
     import ctypes
 
-    from ...native import get_lib
-    lib = get_lib()
+    from ... import native
     h, w = yp.shape
     n_mb = (h // 16) * (w // 16)
     if prev.shape != (n_mb, TILE_WORDS) or prev.dtype != np.uint8 \
             or not prev.flags.c_contiguous:
         raise ValueError(f"prev must be C-contiguous uint8 ({n_mb}, "
                          f"{TILE_WORDS}), got {prev.dtype} {prev.shape}")
+    if native.disabled():
+        cur = tiles_from_planes_host(*(np.asarray(p, np.uint8)
+                                       for p in (yp, up, vp)))
+        if full:
+            idx, tiles = np.arange(n_mb, dtype=np.int32), cur
+        else:
+            idx, tiles = delta_tiles_host(prev, cur)
+        prev[:] = cur
+        return idx, tiles
+    lib = native.get_lib()
     u8p = ctypes.POINTER(ctypes.c_uint8)
     idx = np.empty(n_mb, np.int32)
     tiles = np.empty((n_mb, TILE_WORDS), np.uint8)

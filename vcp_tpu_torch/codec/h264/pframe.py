@@ -34,15 +34,21 @@ from . import gop_ops, rdcost
 from .encoder import lam_for_qp
 from .gop_ops import MB_WORDS, _rep2
 
-# extra-bits penalties for choosing a partitioned mb_type over
-# P_L0_16x16 (mb_type ue + extra mvd headers + lost P_Skip eligibility),
-# in the SAD-lambda currency (vcp_tpu's defaults)
-P8X8_BIT_PENALTY = 40
-P2PART_BIT_PENALTY = 20
-# minimum linf divergence from the 16x16 vector (quarter-pel) for a
-# partition to be considered: sub-pel refinement jitters every block by
-# 1-2 qpel, and those "splits" never pay for their syntax
-P8X8_MIN_SPLIT_Q = 4
+
+def part_penalties() -> tuple[int, int, int]:
+    """(P_8x8 penalty, 16x8 / 8x16 penalty, minimum split), read on every
+    call: the extra-bits penalties for choosing a partitioned mb_type
+    over P_L0_16x16 (mb_type ue + extra mvd headers + lost P_Skip
+    eligibility) in the SAD-lambda currency, ``VCP_P8_PENALTY`` (40) and
+    ``VCP_P2_PENALTY`` (20), and the minimum linf divergence from the
+    16x16 vector (quarter-pel) for a partition to be considered,
+    ``VCP_P8_MINSPLIT`` (4): sub-pel refinement jitters every block by
+    1-2 qpel, and those "splits" never pay for their syntax. ``vcp_tpu``
+    reads the same switches once, at import."""
+    return (int(os.environ.get("VCP_P8_PENALTY", "40")),
+            int(os.environ.get("VCP_P2_PENALTY", "20")),
+            int(os.environ.get("VCP_P8_MINSPLIT", "4")))
+
 
 NO_SPLIT = 2 ** 30
 
@@ -160,21 +166,22 @@ def _encode_pframe_parts(y, u, v, ref_y, ref_u, ref_v, qp: int, qpc: int,
 
     # SAD + lam * crude |mv| rates, each partition's rate spread over the
     # blocks it covers
+    pen8, pen2, min_split = part_penalties()
     cost16 = mb_sum(sad8_of(pred16)) + lam * _rate(mv16)
     cost8 = mb_sum(sad8_of(pred8) + lam * _rate(mv8 - mv16_q)) \
-        + lam * P8X8_BIT_PENALTY
+        + lam * pen8
     costh = (sad8_of(predh).reshape(2 * n_mby, n_mbx, 2).sum(-1)
              + lam * _rate(mvh - mv16_h)).reshape(n_mby, 2, n_mbx).sum(1) \
-        + lam * P2PART_BIT_PENALTY
+        + lam * pen2
     costv = (sad8_of(predv).reshape(n_mby, 2, 2 * n_mbx).sum(1)
              + lam * _rate(mvv - mv16_v)).reshape(n_mby, n_mbx, 2).sum(-1) \
-        + lam * P2PART_BIT_PENALTY
+        + lam * pen2
 
     # a shape needs a real motion split, or its "gain" is sub-pel
     # refinement noise that never pays for its syntax
     def split_of(mv_q):
         return (mv_q - mv16_q).abs().amax(dim=-1).reshape(
-            n_mby, 2, n_mbx, 2).amax(dim=(1, 3)) >= P8X8_MIN_SPLIT_Q
+            n_mby, 2, n_mbx, 2).amax(dim=(1, 3)) >= min_split
 
     cost8 = torch.where(split_of(mv8), cost8, NO_SPLIT)
     costh = torch.where(split_of(mvh_q), costh, NO_SPLIT)

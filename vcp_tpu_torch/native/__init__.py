@@ -6,18 +6,35 @@ decoder's deblocking filter, CABAC slice parser and reconstruction.
 use into ``vcp_tpu_torch/_build/`` and returns the loaded library. These
 are host code, not device kernels. A failed build raises. The first use
 builds and loads under a lock, so threads that reach it together (a
-consumer's workers) share one build and one handle."""
+consumer's workers) share one build and one handle.
+
+``VCP_NO_NATIVE=1``, read on every call as in ``vcp_tpu``, turns the
+library off: no g++ runs, and every caller takes its Python or NumPy
+path (the CABAC and CAVLC writers of ``codec.h264.cabac_syntax`` and
+``entropy``, the decoder's ``inter_cabac`` / ``inter_recon``, the NumPy
+deblock of ``ops.deblock_host``, the tile pair of ``gop_ops``).
+``get_lib()`` raises while the switch is set, so a caller that missed it
+fails instead of building. Without the switch nothing falls back."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import threading
 
 _lock = threading.Lock()
 
 
+def disabled() -> bool:
+    """``VCP_NO_NATIVE`` is set (to anything but the empty string)."""
+    return bool(os.environ.get("VCP_NO_NATIVE"))
+
+
 def get_lib() -> ctypes.CDLL:
+    if disabled():
+        raise RuntimeError("the host library is off (VCP_NO_NATIVE is set); "
+                           "this caller has no Python path")
     with _lock:
         return _load()
 

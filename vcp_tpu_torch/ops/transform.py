@@ -278,3 +278,22 @@ def dequant_dc2_np(levels, qp: int):
     per = qp // 6
     f = hadamard2_np(levels)
     return (f * v00 << per) >> 1
+
+
+def dequant4_np_qpmap(levels, qp_map):
+    """4x4 dequant with a QP per macroblock: ``levels`` (nMBy, nMBx, B,
+    4, 4), ``qp_map`` (nMBy, nMBx) (the NumPy inter reconstruction of a
+    whole picture, whose MBs may each carry an mb_qp_delta)."""
+    qp = np.asarray(qp_map, np.int32)
+    v = np.asarray(V_TABLE)[qp % 6]                # (nMBy, nMBx, 4, 4)
+    sh = (qp // 6)[..., None, None, None]
+    return (np.asarray(levels, np.int32) * v[:, :, None, :, :]) << sh
+
+
+def dequant_dc2_np_qpmap(levels, qpc_map):
+    """Chroma DC dequant with a chroma QP per macroblock: ``levels``
+    (nMBy, nMBx, 2, 2), ``qpc_map`` (nMBy, nMBx)."""
+    qp = np.asarray(qpc_map, np.int32)
+    v00 = np.asarray(V_TABLE)[qp % 6, 0, 0]        # (nMBy, nMBx)
+    f = hadamard2_np(levels)
+    return (f * v00[..., None, None] << (qp // 6)[..., None, None]) >> 1
