@@ -2,7 +2,8 @@
 I16 / i8 frame ``intra_rd.encode_iframe_rd8`` on gradient, texture and
 noise content, and the I16-only frame ``encode_iframe_rd`` (anti-diagonal
 wavefront) at frames taller and wider than they are long, QPs 0, 28 and
-51, with and without the deblock: every output array equal. The float32 costs that drive the
+51, with and without the deblock: every output array equal, and the
+step counts of the step-indexed wavefront. The float32 costs that drive the
 decisions are compared with a relative tolerance of 1e-5 (the port sums
 the bit proxies exactly, XLA in float32 in its own order; and XLA's log2
 differs from the port's table by one float32 step in about half the
@@ -112,6 +113,27 @@ def test_encode_iframe_rd_modes():
             modes |= set(out["modes"].numpy().ravel().tolist())
             cmodes |= set(out["cmodes"].numpy().ravel().tolist())
     assert modes == cmodes == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("qp", [18, 28, 41])
+@pytest.mark.parametrize("fn,maps", [("encode_iframe_rd", "diagonal_maps"),
+                                     ("encode_iframe_rd8", "diagonal_maps2")])
+def test_wavefront_step_counts(fn, maps, qp):
+    """The step-indexed wavefront off CUDA: every output equal to vcp_tpu's,
+    one eager step per diagonal and no graph captured or replayed."""
+    y, u, v = _content("texture", qp + 1)
+    qpc = jtf.chroma_qp(qp)
+    steps = getattr(tir, maps)(H // 16, W // 16)[0].shape[0]
+    run = tir.run_wavefront
+    before = (run.eager_steps, run.captures, run.replays)
+    got = getattr(tir, fn)(_t(y), _t(u), _t(v), qp, qpc, True)
+    assert (run.eager_steps, run.captures, run.replays) == \
+        (before[0] + steps, *before[1:])
+    want = getattr(jir, fn)(y, u, v, qp, qpc, True)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
 
 
 def test_diagonal_maps_and_tables():

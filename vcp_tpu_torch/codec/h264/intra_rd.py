@@ -14,17 +14,22 @@ An I16 MB reads its left, top and top-left neighbours, so
 row, which an anti-diagonal would process concurrently, so
 ``encode_iframe_rd8`` runs over slope-2 diagonals d = 2*mby + mbx
 (``diagonal_maps2``). Every MB on a diagonal depends only on earlier
-diagonals, so each step handles a whole diagonal as a batch of lanes
-(the ``lax.scan`` of the reference is a Python loop over device tensors
-here). Within an i8 trial the four 8x8 blocks run in raster order, each
-predicting from the plane as the previous one left it; the MB-level
-decision then overwrites the MB with the winner.
+diagonals, so each step handles a whole diagonal as a batch of lanes.
+The ``lax.scan`` of the reference is a step function over fixed buffers
+here, whose step index lives on the device (``run_wavefront``): on CUDA
+one captured graph of the step is replayed for every diagonal, elsewhere
+the step runs eagerly. Within an i8 trial the four 8x8 blocks run in
+raster order, each predicting from the plane as the previous one left
+it; the MB-level decision then overwrites the MB with the winner.
 
 Sample arithmetic is int32-exact; the costs are float32 built from the
 device-independent pieces of ``rdcost``.
 """
 
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -501,9 +506,14 @@ def _chroma_trial(pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc: int,
 class _Wavefront:
     """The schedule of an n_mby x n_mbx frame on ``dev`` by the maps of
     ``maps`` (``diagonal_maps`` or ``diagonal_maps2``): per step d the
-    lanes' MB coordinates (clamped to 0 on invalid lanes), validity and
-    availability of the top / left neighbours, plus the inverse map that
-    puts per-step outputs back in raster order."""
+    lanes' MB coordinates (0 on invalid lanes) and validity, plus the
+    inverse map that puts per-step outputs back in raster order.
+
+    The step index lives on the device (``step``, one element): ``pick``
+    and ``lanes`` read the step it holds, and ``store`` writes a step's
+    outputs into slot arrays (steps, L, ...) and advances it. So no step
+    needs its index on the host, and one captured CUDA graph serves every
+    step."""
 
     def __init__(self, n_mby: int, n_mbx: int, dev, maps=diagonal_maps2):
         MBY, MBX, VALID, DMAP, KMAP = maps(n_mby, n_mbx)
@@ -514,17 +524,32 @@ class _Wavefront:
         self.dm = torch.from_numpy(DMAP).to(dev).long()
         self.km = torch.from_numpy(KMAP).to(dev).long()
         self.steps = MBY.shape[0]
+        self.step = torch.zeros(1, dtype=torch.long, device=dev)
+        self.slots = None
 
-    def lanes(self, d: int):
-        """(valid, mbyc, mbxc, avt, avl) of step d."""
-        valid = self.valid[d]
-        return (valid, torch.where(valid, self.mby[d], 0),
-                torch.where(valid, self.mbx[d], 0),
-                (self.mby[d] > 0) & valid, (self.mbx[d] > 0) & valid)
+    def pick(self, t):
+        """Row ``step`` of a (steps, ...) tensor."""
+        return t.index_select(0, self.step)[0]
 
-    def raster(self, outs):
-        """Per-step output tuples -> raster-order tensors, one per column."""
-        return tuple(torch.stack(col)[self.dm, self.km] for col in zip(*outs))
+    def lanes(self):
+        """(valid, mbyc, mbxc, avt, avl) of the current step."""
+        valid, mby, mbx = (self.pick(t)
+                           for t in (self.valid, self.mby, self.mbx))
+        return valid, mby, mbx, (mby > 0) & valid, (mbx > 0) & valid
+
+    def store(self, *outs) -> None:
+        """Write the current step's outputs into their slots and advance
+        the step. The first store allocates the slots (every row is
+        written before it is read)."""
+        if self.slots is None:
+            self.slots = [o.new_empty((self.steps, *o.shape)) for o in outs]
+        for slot, o in zip(self.slots, outs):
+            slot.index_copy_(0, self.step, o[None])
+        self.step.add_(1)
+
+    def raster(self):
+        """The slots as raster-order tensors, one per column (copies)."""
+        return tuple(slot[self.dm, self.km] for slot in self.slots)
 
 
 def _mb_planes(y, u, v):
@@ -546,6 +571,144 @@ def _bordered_planes(h: int, w: int, dev):
     return py, pu, torch.zeros_like(pu), mg
 
 
+class _Frame:
+    """The fixed buffers a wavefront step works on for an h x w frame:
+    the int32 source planes and their MB views, the bordered recon planes
+    and mode grid (``_bordered_planes``), the sample offsets 0..15 and
+    0..7, and the ``_Wavefront`` of ``maps``. ``load`` puts a new frame in and resets the rest, so a
+    captured step can run again over it."""
+
+    def __init__(self, h: int, w: int, dev, maps):
+        self.h, self.w = h, w
+        self.n_mby, self.n_mbx = h // 16, w // 16
+        self.src = tuple(torch.empty(s, dtype=torch.int32, device=dev)
+                         for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+        self.ymb, self.umb, self.vmb = _mb_planes(*self.src)
+        self.py, self.pu, self.pv, self.mg = _bordered_planes(h, w, dev)
+        self.a16, self.a8 = (torch.arange(n, device=dev) for n in (16, 8))
+        self.wf = _Wavefront(self.n_mby, self.n_mbx, dev, maps)
+
+    def load(self, y, u, v, recon=None) -> None:
+        """Source planes (y, u, v) of any integer dtype; the recon planes
+        start as ``recon`` (int32 (ry, ru, rv)) or zero, the mode grid as
+        -1, the step at 0."""
+        h, w = self.h, self.w
+        for dst, p in zip(self.src, (y, u, v)):
+            dst.copy_(p)
+        for plane, (ph, pw), r in zip(
+                (self.py, self.pu, self.pv),
+                ((h, w), (h // 2, w // 2), (h // 2, w // 2)),
+                recon or (None,) * 3):
+            plane.zero_()
+            if r is not None:
+                plane[1:ph + 1, 1:pw + 1] = r
+        self.mg.fill_(-1)
+        self.wf.step.zero_()
+
+    def recon(self):
+        """The int32 recon planes inside the borders (copies: a plane
+        inside its border is never contiguous)."""
+        h, w = self.h, self.w
+        return (self.py[1:h + 1, 1:w + 1].contiguous(),
+                self.pu[1:h // 2 + 1, 1:w // 2 + 1].contiguous(),
+                self.pv[1:h // 2 + 1, 1:w // 2 + 1].contiguous())
+
+
+# Captured steps by (device, step function, n_mby, n_mbx, qp, qpc), least
+# recently used first: qp and lambda2 are baked into the captured kernels'
+# arguments. Every task builds a new encoder, so the cache is the
+# module's; the bound keeps QPs that rate control varies from growing it.
+GRAPH_CACHE_SIZE = 8
+_graphs: OrderedDict = OrderedDict()
+_graphs_lock = threading.Lock()
+# one capture at a time: a capture starts by emptying the allocator's
+# cache, which must not happen while another thread captures
+_capture_lock = threading.Lock()
+
+
+def _capture(step, maps, planes, args):
+    """(frame, graph, event) of one step of ``step`` captured over a new
+    ``_Frame`` for ``planes``. A step over a throwaway frame of the same
+    planes on a side stream comes first: it uploads the ``constant``
+    tables, runs every kernel once, as a capture requires, and gives the
+    slots' shapes. The slots are allocated before the capture: memory
+    allocated inside it may be a temporary's of an earlier kernel of the
+    step, which every replay writes again."""
+    h, w = planes[0].shape
+    dev = planes[0].device
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        warm = _Frame(h, w, dev, maps)
+        warm.load(*planes)
+        step(warm, *args)
+    cur.wait_stream(side)
+    f = _Frame(h, w, dev, maps)
+    f.wf.slots = [torch.empty_like(slot) for slot in warm.wf.slots]
+    del warm
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        step(f, *args)
+    run_wavefront.captures += 1
+    return f, graph, torch.cuda.Event()
+
+
+def run_wavefront(step, maps, y, u, v, qp: int, qpc: int):
+    """Run ``step(frame, qp, qpc, lam2, lam2c)`` once per diagonal of the
+    ``maps`` wavefront over the frame (y, u, v). Returns (the
+    raster-order output columns, the int32 recon planes), all copies.
+
+    On CUDA the step is captured once as a CUDA graph (``_capture``,
+    cached in ``_graphs``) and replayed for every diagonal: a step is
+    ~2,000 small kernels, which the host would otherwise launch one by
+    one. Elsewhere it runs eagerly. ``captures``, ``replays`` and
+    ``eager_steps`` count both."""
+    h, w = y.shape
+    dev = y.device
+    args = (qp, qpc, rdcost.lam2_for_qp(qp), rdcost.lam2_for_qp(qpc))
+    if dev.type != "cuda":
+        f = _Frame(h, w, dev, maps)
+        f.load(y, u, v)
+        for _ in range(f.wf.steps):
+            step(f, *args)
+        run_wavefront.eager_steps += f.wf.steps
+        return f.wf.raster(), f.recon()
+    key = (str(dev), step.__name__, h // 16, w // 16, qp, qpc)
+    with torch.cuda.device(dev):
+        # an entry is taken out while in use, so two threads never share
+        # its buffers; its event orders the next use after this one's
+        # copies
+        with _graphs_lock:
+            entry = _graphs.pop(key, None)
+        if entry is None:
+            with _capture_lock:
+                entry = _capture(step, maps, (y, u, v), args)
+        else:
+            torch.cuda.current_stream(dev).wait_event(entry[2])
+        f, graph, done = entry
+        f.load(y, u, v)
+        for _ in range(f.wf.steps):
+            graph.replay()
+        out = f.wf.raster(), f.recon()
+        done.record(torch.cuda.current_stream(dev))
+        with _graphs_lock:
+            run_wavefront.replays += f.wf.steps
+            _graphs[key] = entry
+            evicted = [_graphs.popitem(last=False)[1]
+                       for _ in range(len(_graphs) - GRAPH_CACHE_SIZE)]
+        # an evicted graph's memory goes back to the allocator: its last
+        # replays must have run
+        for _, _, ev in evicted:
+            ev.synchronize()
+    return out
+
+
+run_wavefront.captures = 0
+run_wavefront.replays = 0
+run_wavefront.eager_steps = 0
+
+
 def _deblock_intra(recon_y, recon_u, recon_v, qp: int, t8=None):
     """The in-loop filter of an all-intra frame at one QP."""
     from ...ops import deblock as dbf
@@ -560,12 +723,24 @@ def _deblock_intra(recon_y, recon_u, recon_v, qp: int, t8=None):
                              mvq, t8=t8)
 
 
-def _recon_planes(py, pu, pv):
-    """The frame inside the bordered planes."""
-    h, w = py.shape[0] - 17, py.shape[1] - 17
-    return (py[1:h + 1, 1:w + 1].contiguous(),
-            pu[1:h // 2 + 1, 1:w // 2 + 1].contiguous(),
-            pv[1:h // 2 + 1, 1:w // 2 + 1].contiguous())
+def _rd_step(f: _Frame, qp: int, qpc: int, lam2: float, lam2c: float):
+    """One anti-diagonal of ``encode_iframe_rd`` over ``f`` at its step:
+    the I16 trial, the chroma trial, their recon scattered into the
+    planes (invalid lanes into the sink rows)."""
+    a16, a8 = f.a16, f.a8
+    valid, mbyc, mbxc, avt, avl = f.wf.lanes()
+    y0 = mbyc * 16 + 1
+    x0 = mbxc * 16 + 1
+    top, left, corner = _gather_edges(f.py, y0, x0, a16)
+    mode, z_dc, z_ac, recon, _ = _luma_modes(
+        f.ymb[mbyc, mbxc], top, left, corner, avt, avl, qp, lam2)
+    _scatter(f.py, torch.where(valid, y0, f.h + 1), x0, recon, a16)
+    cmode, _, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
+        f.pu, f.pv, f.umb, f.vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
+    c0s = torch.where(valid, c0, f.h // 2 + 1)
+    _scatter(f.pu, c0s, cx0, urec, a8)
+    _scatter(f.pv, c0s, cx0, vrec, a8)
+    f.wf.store(mode, z_dc, z_ac, cmode, *clevels)
 
 
 def encode_iframe_rd(y, u, v, qp: int, qpc: int, deblock: bool = False):
@@ -576,37 +751,9 @@ def encode_iframe_rd(y, u, v, qp: int, qpc: int, deblock: bool = False):
     integer dtype. Returns the level arrays of ``frame_ops.encode_iframe``
     plus "modes" / "cmodes" (n_mby, n_mbx) int32, and the uint8 recon
     planes."""
-    y, u, v = (a.to(torch.int32) for a in (y, u, v))
-    dev = y.device
-    h, w = y.shape
-    n_mby, n_mbx = h // 16, w // 16
-    wf = _Wavefront(n_mby, n_mbx, dev, maps=diagonal_maps)
-    lam2 = rdcost.lam2_for_qp(qp)
-    lam2c = rdcost.lam2_for_qp(qpc)
-    ymb, umb, vmb = _mb_planes(y, u, v)
-    py, pu, pv, _ = _bordered_planes(h, w, dev)
-    a16 = torch.arange(16, device=dev)
-    a8 = torch.arange(8, device=dev)
-
-    outs = []
-    for d in range(wf.steps):
-        valid, mbyc, mbxc, avt, avl = wf.lanes(d)
-        y0 = mbyc * 16 + 1
-        x0 = mbxc * 16 + 1
-        top, left, corner = _gather_edges(py, y0, x0, a16)
-        mode, z_dc, z_ac, recon, _ = _luma_modes(
-            ymb[mbyc, mbxc], top, left, corner, avt, avl, qp, lam2)
-        _scatter(py, torch.where(valid, y0, h + 1), x0, recon, a16)
-        cmode, _, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
-            pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
-        c0s = torch.where(valid, c0, h // 2 + 1)
-        _scatter(pu, c0s, cx0, urec, a8)
-        _scatter(pv, c0s, cx0, vrec, a8)
-        outs.append((mode, z_dc, z_ac, cmode, *clevels))
-
-    modes, luma_dc, luma_ac, cmodes, cb_dc, cb_ac, cr_dc, cr_ac = \
-        wf.raster(outs)
-    recon = _recon_planes(py, pu, pv)
+    n_mby, n_mbx = y.shape[0] // 16, y.shape[1] // 16
+    cols, recon = run_wavefront(_rd_step, diagonal_maps, y, u, v, qp, qpc)
+    modes, luma_dc, luma_ac, cmodes, cb_dc, cb_ac, cr_dc, cr_ac = cols
     if deblock:
         recon = _deblock_intra(*recon, qp)
     return {
@@ -620,6 +767,42 @@ def encode_iframe_rd(y, u, v, qp: int, qpc: int, deblock: bool = False):
     }
 
 
+def _rd8_step(f: _Frame, qp: int, qpc: int, lam2: float, lam2c: float):
+    """One slope-2 diagonal of ``encode_iframe_rd8`` over ``f`` at its
+    step: the I16 and i8 trials and the MB decision, the winner's recon
+    and i8 modes published, the chroma trial."""
+    a16, a8 = f.a16, f.a8
+    valid, mbyc, mbxc, avt, avl = f.wf.lanes()
+    y0 = mbyc * 16 + 1
+    x0 = mbxc * 16 + 1
+    cur = f.ymb[mbyc, mbxc]
+
+    top, left, corner = _gather_edges(f.py, y0, x0, a16)
+    mode16, z_dc, z_ac, recon16, cost16 = _luma_modes(
+        cur, top, left, corner, avt, avl, qp, lam2)
+    gmodes, b_z, rec_i8, cost8 = _i8_trial(
+        f.py, f.mg, cur, y0, x0, mbyc, mbxc, valid, f.n_mbx, f.h, qp, lam2)
+    use_i8 = cost8 + lam2 * I8_OVERHEAD_BITS \
+        < cost16 + lam2 * I16_OVERHEAD_BITS
+    recon = torch.where(use_i8[:, None, None], rec_i8, recon16)
+    _scatter(f.py, torch.where(valid, y0, f.h + 1), x0, recon, a16)
+    # i8 winners publish their modes, everything else stays -1 (DC to
+    # its neighbors)
+    _publish_modes(f.mg, valid, mbyc, mbxc,
+                   torch.where(use_i8[:, None], gmodes, -1), f.n_mby)
+
+    cmode, _, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
+        f.pu, f.pv, f.umb, f.vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
+    c0s = torch.where(valid, c0, f.h // 2 + 1)
+    _scatter(f.pu, c0s, cx0, urec, a8)
+    _scatter(f.pv, c0s, cx0, vrec, a8)
+
+    # zero the losing representation's level arrays
+    f.wf.store(mode16, z_dc * ~use_i8[:, None],
+               z_ac * ~use_i8[:, None, None], cmode, *clevels, use_i8,
+               gmodes, b_z * use_i8[:, None, None])
+
+
 def encode_iframe_rd8(y, u, v, qp: int, qpc: int, deblock: bool = False):
     """Intra frame with a per-MB RD choice between I_16x16 (4 modes) and
     I_NxN with the 8x8 transform (four 8x8 blocks, 9 modes each).
@@ -630,67 +813,70 @@ def encode_iframe_rd8(y, u, v, qp: int, qpc: int, deblock: bool = False):
     bool, "i8_modes" (n_mby, n_mbx, 4) and "i8_luma" (n_mby, n_mbx, 4,
     64) zigzag scans (the High-profile CABAC entropy inputs), and the
     uint8 recon planes."""
-    y, u, v = (a.to(torch.int32) for a in (y, u, v))
-    dev = y.device
-    h, w = y.shape
-    n_mby, n_mbx = h // 16, w // 16
-    wf = _Wavefront(n_mby, n_mbx, dev)
-    lam2 = rdcost.lam2_for_qp(qp)
-    lam2c = rdcost.lam2_for_qp(qpc)
-    ymb, umb, vmb = _mb_planes(y, u, v)
-    py, pu, pv, mg = _bordered_planes(h, w, dev)
-    a16 = torch.arange(16, device=dev)
-    a8 = torch.arange(8, device=dev)
-
-    outs = []
-    for d in range(wf.steps):
-        valid, mbyc, mbxc, avt, avl = wf.lanes(d)
-        y0 = mbyc * 16 + 1
-        x0 = mbxc * 16 + 1
-        cur = ymb[mbyc, mbxc]
-
-        top, left, corner = _gather_edges(py, y0, x0, a16)
-        mode16, z_dc, z_ac, recon16, cost16 = _luma_modes(
-            cur, top, left, corner, avt, avl, qp, lam2)
-        gmodes, b_z, rec_i8, cost8 = _i8_trial(
-            py, mg, cur, y0, x0, mbyc, mbxc, valid, n_mbx, h, qp, lam2)
-        use_i8 = cost8 + lam2 * I8_OVERHEAD_BITS \
-            < cost16 + lam2 * I16_OVERHEAD_BITS
-        recon = torch.where(use_i8[:, None, None], rec_i8, recon16)
-        _scatter(py, torch.where(valid, y0, h + 1), x0, recon, a16)
-        # i8 winners publish their modes, everything else stays -1 (DC to
-        # its neighbors)
-        _publish_modes(mg, valid, mbyc, mbxc,
-                       torch.where(use_i8[:, None], gmodes, -1), n_mby)
-
-        cmode, _, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
-            pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
-        c0s = torch.where(valid, c0, h // 2 + 1)
-        _scatter(pu, c0s, cx0, urec, a8)
-        _scatter(pv, c0s, cx0, vrec, a8)
-
-        # zero the losing representation's level arrays
-        outs.append((mode16, z_dc * ~use_i8[:, None],
-                     z_ac * ~use_i8[:, None, None], cmode, *clevels, use_i8,
-                     gmodes, b_z * use_i8[:, None, None]))
-
+    n_mby, n_mbx = y.shape[0] // 16, y.shape[1] // 16
+    cols, recon = run_wavefront(_rd8_step, diagonal_maps2, y, u, v, qp,
+                                qpc)
     (modes, luma_dc, luma_ac, cmodes, cb_dc, cb_ac, cr_dc, cr_ac, i8_grid,
-     i8_modes, i8_luma) = wf.raster(outs)
-    cb_ac = cb_ac.reshape(n_mby, n_mbx, 4, 16)
-    cr_ac = cr_ac.reshape(n_mby, n_mbx, 4, 16)
-
-    recon = _recon_planes(py, pu, pv)
+     i8_modes, i8_luma) = cols
     if deblock:
         recon = _deblock_intra(*recon, qp, t8=i8_grid)
     return {
         "luma_dc": luma_dc, "luma_ac": luma_ac,
-        "cb_dc": cb_dc, "cb_ac": cb_ac, "cr_dc": cr_dc, "cr_ac": cr_ac,
+        "cb_dc": cb_dc, "cb_ac": cb_ac.reshape(n_mby, n_mbx, 4, 16),
+        "cr_dc": cr_dc, "cr_ac": cr_ac.reshape(n_mby, n_mbx, 4, 16),
         "modes": modes, "cmodes": cmodes,
         "i8": i8_grid, "i8_modes": i8_modes, "i8_luma": i8_luma,
         "recon_y": recon[0].to(torch.uint8),
         "recon_u": recon[1].to(torch.uint8),
         "recon_v": recon[2].to(torch.uint8),
     }
+
+
+def _overlay_step(f: _Frame, ic_s, qp: int, qpc: int, lam2: float,
+                  lam2c: float):
+    """One slope-2 diagonal of ``intra_overlay_pass`` over ``f`` at its
+    step; ``ic_s`` (steps, L) holds the inter costs of the lanes."""
+    a16, a8 = f.a16, f.a8
+    py, h = f.py, f.h
+    valid, mbyc, mbxc, avt, avl = f.wf.lanes()
+    y0 = mbyc * 16 + 1
+    x0 = mbxc * 16 + 1
+    cur = f.ymb[mbyc, mbxc]
+
+    top, left, corner = _gather_edges(py, y0, x0, a16)
+    mode16, z_dc, z_ac, recon16, cost16 = _luma_modes(
+        cur, top, left, corner, avt, avl, qp, lam2)
+    save16 = py[y0[:, None, None] + a16[None, :, None],
+                x0[:, None, None] + a16[None, None, :]]
+    gmodes, b_z, rec_i8, cost8 = _i8_trial(
+        py, f.mg, cur, y0, x0, mbyc, mbxc, valid, f.n_mbx, h, qp, lam2)
+    cmode, ccost, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
+        f.pu, f.pv, f.umb, f.vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
+
+    # MB decision: inter vs I16 vs i8 (the chroma cost is shared)
+    cost_i8 = cost8 + lam2 * I8_OVERHEAD_BITS
+    cost_i16 = cost16 + lam2 * I16_OVERHEAD_BITS
+    intra_cost = torch.minimum(cost_i8, cost_i16) + ccost \
+        + lam2 * P_INTRA_EXTRA_BITS
+    use_intra = valid & (intra_cost < f.wf.pick(ic_s))
+    use_i8 = use_intra & (cost_i8 < cost_i16)
+    use_16 = use_intra & ~use_i8
+
+    rec_mb = torch.where(use_i8[:, None, None], rec_i8, recon16)
+    # MBs that stay inter restore the recon the i8 blocks overwrote
+    final = torch.where(use_intra[:, None, None], rec_mb, save16)
+    _scatter(py, torch.where(valid, y0, h + 1), x0, final, a16)
+    c0s = torch.where(use_intra, c0, h // 2 + 1)
+    _scatter(f.pu, c0s, cx0, urec, a8)
+    _scatter(f.pv, c0s, cx0, vrec, a8)
+    gvals = torch.where(use_i8[:, None], gmodes, -1)
+    _publish_modes(f.mg, valid, mbyc, mbxc, gvals, f.n_mby)
+
+    n = valid.shape[0]
+    luma_mux = (z_ac * use_16[:, None, None]).reshape(n, 256) \
+        + (b_z * use_i8[:, None, None]).reshape(n, 256)
+    f.wf.store(use_intra, use_i8, mode16, cmode, z_dc * use_16[:, None],
+               luma_mux, gvals, *(lv * use_intra[:, None] for lv in clevels))
 
 
 def intra_overlay_pass(cur_y, cur_u, cur_v, ry, ru, rv, inter_cost,
@@ -701,7 +887,7 @@ def intra_overlay_pass(cur_y, cur_u, cur_v, ry, ru, rv, inter_cost,
     I16 or I_NxN / i8 (with its chroma mode trial) costs less than the
     inter MB's ``inter_cost`` (nMBy, nMBx) in the same SSD + lambda2 *
     bits currency. Later MBs predict from the final recon, so the levels
-    reproduce exactly in any spec decoder.
+    reproduce exactly in any spec decoder. Runs eagerly on every device.
 
     Returns "intra" / "i8" (nMBy, nMBx) bool, "modes" (I16) / "cmodes",
     "luma_dc" (nMBy, nMBx, 16), "luma_mux" (nMBy, nMBx, 256: an intra
@@ -709,71 +895,21 @@ def intra_overlay_pass(cur_y, cur_u, cur_v, ry, ru, rv, inter_cost,
     (nMBy, nMBx, 4; -1 off i8 MBs), the chroma levels of the intra MBs
     "cb_dc" / "cb_ac" / "cr_dc" / "cr_ac" (zeros elsewhere), and the int32
     recon planes (pre-deblock)."""
-    dev = cur_y.device
     h, w = cur_y.shape
     n_mby, n_mbx = h // 16, w // 16
-    wf = _Wavefront(n_mby, n_mbx, dev)
-    lam2 = rdcost.lam2_for_qp(qp)
-    lam2c = rdcost.lam2_for_qp(qpc)
-    ymb, umb, vmb = _mb_planes(cur_y, cur_u, cur_v)
-    py, pu, pv, mg = _bordered_planes(h, w, dev)
-    py[1:h + 1, 1:w + 1] = ry
-    pu[1:h // 2 + 1, 1:w // 2 + 1] = ru
-    pv[1:h // 2 + 1, 1:w // 2 + 1] = rv
-    a16 = torch.arange(16, device=dev)
-    a8 = torch.arange(8, device=dev)
-    ic_s = inter_cost[wf.mby, wf.mbx]                       # (D, L)
-
-    outs = []
-    for d in range(wf.steps):
-        valid, mbyc, mbxc, avt, avl = wf.lanes(d)
-        y0 = mbyc * 16 + 1
-        x0 = mbxc * 16 + 1
-        cur = ymb[mbyc, mbxc]
-
-        top, left, corner = _gather_edges(py, y0, x0, a16)
-        mode16, z_dc, z_ac, recon16, cost16 = _luma_modes(
-            cur, top, left, corner, avt, avl, qp, lam2)
-        save16 = py[y0[:, None, None] + a16[None, :, None],
-                    x0[:, None, None] + a16[None, None, :]]
-        gmodes, b_z, rec_i8, cost8 = _i8_trial(
-            py, mg, cur, y0, x0, mbyc, mbxc, valid, n_mbx, h, qp, lam2)
-        cmode, ccost, clevels, urec, vrec, (c0, cx0) = _chroma_trial(
-            pu, pv, umb, vmb, mbyc, mbxc, avt, avl, qpc, lam2c)
-
-        # MB decision: inter vs I16 vs i8 (the chroma cost is shared)
-        cost_i8 = cost8 + lam2 * I8_OVERHEAD_BITS
-        cost_i16 = cost16 + lam2 * I16_OVERHEAD_BITS
-        intra_cost = torch.minimum(cost_i8, cost_i16) + ccost \
-            + lam2 * P_INTRA_EXTRA_BITS
-        use_intra = valid & (intra_cost < ic_s[d])
-        use_i8 = use_intra & (cost_i8 < cost_i16)
-        use_16 = use_intra & ~use_i8
-
-        rec_mb = torch.where(use_i8[:, None, None], rec_i8, recon16)
-        # MBs that stay inter restore the recon the i8 blocks overwrote
-        final = torch.where(use_intra[:, None, None], rec_mb, save16)
-        _scatter(py, torch.where(valid, y0, h + 1), x0, final, a16)
-        c0s = torch.where(use_intra, c0, h // 2 + 1)
-        _scatter(pu, c0s, cx0, urec, a8)
-        _scatter(pv, c0s, cx0, vrec, a8)
-        gvals = torch.where(use_i8[:, None], gmodes, -1)
-        _publish_modes(mg, valid, mbyc, mbxc, gvals, n_mby)
-
-        n = valid.shape[0]
-        luma_mux = (z_ac * use_16[:, None, None]).reshape(n, 256) \
-            + (b_z * use_i8[:, None, None]).reshape(n, 256)
-        outs.append((use_intra, use_i8, mode16, cmode,
-                     z_dc * use_16[:, None], luma_mux, gvals,
-                     *(lv * use_intra[:, None] for lv in clevels)))
+    f = _Frame(h, w, cur_y.device, diagonal_maps2)
+    f.load(cur_y, cur_u, cur_v, (ry, ru, rv))
+    ic_s = inter_cost[f.wf.mby, f.wf.mbx]                   # (D, L)
+    args = (qp, qpc, rdcost.lam2_for_qp(qp), rdcost.lam2_for_qp(qpc))
+    for _ in range(f.wf.steps):
+        _overlay_step(f, ic_s, *args)
 
     (intra, i8, modes, cmodes, luma_dc, luma_mux, i8_modes, cb_dc, cb_ac,
-     cr_dc, cr_ac) = wf.raster(outs)
+     cr_dc, cr_ac) = f.wf.raster()
     return {
         "intra": intra, "i8": i8, "modes": modes, "cmodes": cmodes,
         "luma_dc": luma_dc, "luma_mux": luma_mux, "i8_modes": i8_modes,
         "cb_dc": cb_dc, "cb_ac": cb_ac.reshape(n_mby, n_mbx, 4, 16),
         "cr_dc": cr_dc, "cr_ac": cr_ac.reshape(n_mby, n_mbx, 4, 16),
-        **dict(zip(("recon_y", "recon_u", "recon_v"),
-                   _recon_planes(py, pu, pv))),
+        **dict(zip(("recon_y", "recon_u", "recon_v"), f.recon())),
     }
