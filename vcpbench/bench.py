@@ -35,6 +35,26 @@ def process_age_s() -> float | None:
         return None
 
 
+class SetupClock:
+    """The parts of set-up, on ``time.perf_counter``: ``mark(name, at)``
+    closes the part that began at the previous mark. The parts sum to
+    ``setup_s``: ``process_start`` (interpreter start to ``run_cell``,
+    from ``/proc``) and the marked parts, the last of which ends where
+    the window opens."""
+
+    def __init__(self, t0: float, process_start: float | None):
+        self.parts = {"process_start": process_start or 0.0}
+        self.t = t0
+
+    def mark(self, name: str, at: float | None = None) -> None:
+        at = time.perf_counter() if at is None else at
+        self.parts[name] = at - self.t
+        self.t = at
+
+    def total(self) -> float:
+        return sum(self.parts.values())
+
+
 def forbidden_modules() -> list[str]:
     """Loaded modules whose top-level name (compared whole) is JAX's or
     the JAX package's."""
@@ -126,12 +146,12 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     none). ``size`` (W, H) replaces the configuration's frame size for a
     rehearsal; ``program_args`` replaces its preset arguments (the
     control of the comparison)."""
-    t_setup0 = time.perf_counter()
-    age = process_age_s()
+    clock = SetupClock(time.perf_counter(), process_age_s())
     cell = spec.load_cell(workload)
     if not device_ok(device, cell.chips):
         return None
     import torch
+    clock.mark("torch")
     cfg = dict(cell.config)
     if program_args is not None:
         cfg["args"] = program_args
@@ -141,48 +161,51 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     tmp = tempfile.mkdtemp(prefix="vcpbench-")
     try:
         return _run(cell, cfg, traffic, n, seed, seconds, traced, device,
-                    dev, tmp, t_setup0, age)
+                    dev, tmp, clock)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _run(cell, cfg, traffic, n, seed, seconds, traced, device, dev, tmp,
-         t_setup0, age):
+         clock):
     import torch
     src = os.path.join(tmp, "input.y4m")
-    warm = os.path.join(tmp, "warmup.y4m")
     out_dir = os.path.join(tmp, "out")
     os.makedirs(out_dir)
     content = Content(traffic["content"], cfg["width"], cfg["height"], seed)
-    n_warm = traffic["loop"]["warmup_frames"]
-    clips = [(src, n), (warm, n_warm)]
+    clips = [(src, n)]
     if traced:
         clips.append((os.path.join(tmp, "profile.y4m"),
                       traffic["loop"]["profile_frames"]))
-    t = time.perf_counter()
     write_y4m(clips, content, cfg["fps_num"], cfg["fps_den"])
-    _log(f"content and Y4M write {time.perf_counter() - t:.2f} s "
-         f"(set-up so far {time.perf_counter() - t_setup0:.2f} s)")
-    t = time.perf_counter()
-    # warm-up: the cell's own shapes, every kernel built and loaded
-    w = loop.run_task(-1, warm, out_dir, cfg["args"], device, n_warm)
+    clock.mark("content")
+    if device == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    clock.mark("cuda_context")
+    # warm-up: one whole task of the window's own clip, so that every GOP
+    # shape, kernel, graph and host buffer of a task is built and loaded
+    w = loop.run_task(-1, src, out_dir, cfg["args"], device, n)
     if w.error:
         _log(f"warm-up task failed: {w.error}")
     if device == "cuda":
         torch.cuda.synchronize(dev)
-    _log(f"warm-up task of {n_warm} frames {time.perf_counter() - t:.2f} s")
 
     spans = loop.Spans() if traced else None
     with loop.gop_spans(spans) if traced else contextlib.nullcontext():
         tasks, t_w0, t_w1 = loop.closed_loop(
-            src, out_dir, cfg["args"], device, n, seconds, spans)
-    setup_s = t_w0 - t_setup0 + (age or 0.0)
+            src, out_dir, cfg["args"], device, n, seconds, spans,
+            probe=traced)
+    clock.mark("warmup", t_w0)
+    setup_s = clock.total()
+    _log("set-up " + " ".join(f"{k} {v:.2f}" for k, v in clock.parts.items())
+         + f" s: {setup_s:.2f} s")
     _log(f"window {t_w1 - t_w0:.2f} s, {len(tasks)} tasks: "
          + " ".join(f"{t.t1 - t.t0:.2f}" for t in tasks))
     window_gops = list(spans.gops) if traced else []
     prof = None
     if traced and device == "cuda":
-        prof = _profiled_task(cfg, traffic, clips[2][0], out_dir, device,
+        prof = _profiled_task(cfg, traffic, clips[1][0], out_dir, device,
                               dev, tmp)
     memory_peak = (torch.cuda.max_memory_allocated(dev)
                    if device == "cuda" else 0)
@@ -235,6 +258,10 @@ def _run(cell, cfg, traffic, n, seed, seconds, traced, device, dev, tmp,
                                "idle_gaps": prof["idle_gaps"]}
         result["profiled_task_s"] = prof["task"].t1 - prof["task"].t0
         result["trace_events"] = prof["events"]
+    result["setup_parts"] = clock.parts
+    result["task_s"] = [t.t1 - t.t0 for t in tasks]
+    if traced:
+        result["host_probe_s"] = [t.probe_s for t in tasks]
     result["sampled_task"] = res.get("sampled")
     result["frames_decoded"] = res.get("frames_decoded", 0)
     result["mse_worst"] = res.get("mse_worst")

@@ -13,12 +13,17 @@ output ``verify_video_file`` refused, counts in ``tasks_failed``
 * the MP4 container of the sampled output (``container_faults``): one
   ``avc1`` track of the configuration's size, one sample a frame, each
   frame's duration, sync samples exactly at the GOP starts, ``moov``
-  before ``mdat``, one slice NAL unit a sample (IDR on sync samples);
-* the H.264 bitstream: every frame's slice parsed by the reference to
-  its end (``syntax_faults``), and the first ``pixel_frames_per_gop``
-  frames of every GOP decoded to pictures and compared with the seed's
-  source frames. The decode follows the stream from each IDR, so it
-  judges what the device computed: motion search, transform and
+  before ``mdat``, one slice NAL unit a sample (IDR on sync samples),
+  and each GOP's samples shown once each at its own frames: a
+  configuration with B pictures needs the composition offsets (``ctts``)
+  that put its samples, stored in decode order, in display order;
+* the H.264 bitstream: every sample's slice parsed by the reference to
+  its end (``syntax_faults``), after the slice headers of the samples
+  before it in its GOP, so that a B slice finds its anchors; and the
+  first ``pixel_frames_per_gop`` samples of every GOP decoded, in decode
+  order from its IDR, to pictures compared with the seed's source frames
+  at their display indices. The decode follows the stream from each IDR,
+  so it judges what the device computed: motion search, transform and
   quantisation, intra decisions and the in-loop filter.
 
 The pictures are judged by ``lowpass_mse``: the worst, over the decoded
@@ -42,12 +47,13 @@ GOPs are decoded all the same: a failure there is a syntax fault, and
 their error is in ``mse_worst`` and ``psnr_db``.
 
 The frames are spread over a pool of spawned worker processes: the
-pixel runs from each IDR first, then one parse per remaining frame.
+pixel runs from each IDR first, then one parse per remaining sample.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import itertools
 import multiprocessing
 import os
 
@@ -67,6 +73,33 @@ _SAMPLE = 0xC4EC
 
 def gop_starts(n: int, gop: int) -> list[int]:
     return list(range(0, n, gop))
+
+
+def display_order(tr: mp4read.Track) -> list[int]:
+    """The display index of each sample, stored in decode order: the rank
+    of its composition time, which MP4 defines as its decode time (the
+    durations of the samples before it) plus its composition offset
+    (``ctts``). Without a ``ctts`` every sample is shown where it is
+    decoded. Raises ``ValueError`` on a table of another length than the
+    samples, or on two samples shown at one time."""
+    n = len(tr.sizes)
+    if tr.cts_offsets is None:
+        return list(range(n))
+    if len(tr.cts_offsets) != n or len(tr.durations) != n:
+        raise ValueError(f"ctts holds {len(tr.cts_offsets)} offsets and "
+                         f"stts {len(tr.durations)} durations for {n} "
+                         "samples")
+    decode = itertools.accumulate(tr.durations[:-1], initial=0)
+    shows = [t + off for t, off in zip(decode, tr.cts_offsets)]
+    order = sorted(range(n), key=shows.__getitem__)
+    for a, b in zip(order, order[1:]):
+        if shows[a] == shows[b]:
+            raise ValueError(f"samples {a} and {b} are shown at one time, "
+                             f"{shows[a]}")
+    shown = [0] * n
+    for d, i in enumerate(order):
+        shown[i] = d
+    return shown
 
 
 def container_faults(movie: mp4read.Movie, data: bytes, cfg: dict,
@@ -103,6 +136,20 @@ def container_faults(movie: mp4read.Movie, data: bytes, cfg: dict,
     starts = gop_starts(n_frames, cfg["gop"])
     if sync != starts:
         faults.append(f"sync samples {sync[:8]}... are not the GOP starts")
+    if cfg.get("bframes") and tr.cts_offsets is None:
+        faults.append("no ctts: a stream with B pictures is shown in "
+                      "decode order")
+    try:
+        shown = display_order(tr)
+    except ValueError as e:
+        faults.append(str(e))
+    else:
+        for g in starts:
+            frames = list(range(g, min(g + cfg["gop"], len(shown))))
+            if sorted(shown[g:g + len(frames)]) != frames:
+                faults.append(f"GOP at sample {g}: display indices "
+                              f"{shown[g:g + 8]}... do not show its "
+                              "frames once each")
     for i in range(len(tr.sizes)):
         try:
             nals = mp4read.sample_nals(tr, data, i)
@@ -120,12 +167,17 @@ def _track(path: str):
     return next(t for t in movie.tracks if t.handler == "vide"), data
 
 
-def _job(path: str, frames: list[int], pixels: bool, content: dict,
-         width: int, height: int, seed: int) -> list[tuple]:
+def _job(path: str, frames: list[int], shown: list[int], pixels: bool,
+         skim: list[int], content: dict, width: int, height: int,
+         seed: int) -> list[tuple]:
     """Parse (``pixels`` False) or decode from an IDR (``pixels`` True) the
-    given frames of the output: [(frame, error or None, (worst plane MSE,
-    {picture number: luma reading}) or None, luma PSNR or None)]. After a failed frame a decode stops: the
-    frames that follow it have no reference."""
+    given samples of the output, after reading the slice headers of the
+    samples ``skim`` (the reference marking that a B slice's lists are
+    built from). A decoded sample is compared with the source frame at
+    its display index (``shown``): [(display index, error or None, (worst
+    plane MSE, {picture number: luma reading}) or None, luma PSNR or
+    None)]. After a failed sample a decode stops: the samples that follow
+    it have no reference."""
     from .h264ref.decoder import H264Decoder
     tr, data = _track(path)
     dec = H264Decoder()
@@ -134,7 +186,15 @@ def _job(path: str, frames: list[int], pixels: bool, content: dict,
     out = []
     for nal in tr.sps + tr.pps:
         dec._decode_nal(nal)
-    for k, i in enumerate(frames):
+    dec.headers_only = True
+    for i in skim:
+        try:
+            for nal in mp4read.sample_nals(tr, data, i):
+                dec._decode_nal(nal)
+        except Exception:      # noqa: BLE001 - its own job counts it
+            pass
+    dec.headers_only = False
+    for k, (i, d) in enumerate(zip(frames, shown)):
         try:
             n_before = len(dec.frames) + dec.parsed
             for nal in mp4read.sample_nals(tr, data, i):
@@ -144,19 +204,19 @@ def _job(path: str, frames: list[int], pixels: bool, content: dict,
         except Exception as e:     # noqa: BLE001 - any failure is a fault
             err = f"frame {i}: {type(e).__name__}: {e}"
             if pixels:
-                return out + [(j, err, None, None) for j in frames[k:]]
-            out.append((i, err, None, None))
+                return out + [(j, err, None, None) for j in shown[k:]]
+            out.append((d, err, None, None))
             continue
         if not pixels:
-            out.append((i, None, None, None))
+            out.append((d, None, None, None))
             continue
         f = dec.frames[-1]
-        pairs = list(zip((f.y, f.u, f.v), src.frame(i)))
+        pairs = list(zip((f.y, f.u, f.v), src.frame(d)))
         mse = [float(np.mean((a.astype(np.float64) - b) ** 2))
                for a, b in pairs]
         low = {k: lowpass_mse(f.y, pairs[0][1], n)
                for k, n in PICTURES.items()}
-        out.append((i, None, (max(mse), low), psnr(mse[0])))
+        out.append((d, None, (max(mse), low), psnr(mse[0])))
     return out
 
 
@@ -209,6 +269,7 @@ def compare(outputs: list[str], cfg: dict, traffic: dict, seed: int,
         numbers.update(dict.fromkeys(PICTURES, MSE_MAX))
         return res
     res["kbps"] = mp4read.video_kbps(movie.tracks[0])
+    shown = display_order(movie.tracks[0])
     k = int(traffic["check"]["pixel_frames_per_gop"])
     starts = gop_starts(n, cfg["gop"])
     runs = [list(range(g, min(g + k, n, g + cfg["gop"]))) for g in starts]
@@ -217,9 +278,10 @@ def compare(outputs: list[str], cfg: dict, traffic: dict, seed: int,
     workers = workers or min(8, os.cpu_count() or 1)
     ctx = multiprocessing.get_context("spawn")
     with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        futs = [pool.submit(_job, outputs[pick], r, True, *args)
-                for r in runs]
-        futs += [pool.submit(_job, outputs[pick], [i], False, *args)
+        futs = [pool.submit(_job, outputs[pick], r, [shown[i] for i in r],
+                            True, [], *args) for r in runs]
+        futs += [pool.submit(_job, outputs[pick], [i], [shown[i]], False,
+                             list(range(i - i % cfg["gop"], i)), *args)
                  for i in rest]
         rows = [row for f in futs for row in f.result()]
     errs = [e for _, e, _, _ in rows if e]

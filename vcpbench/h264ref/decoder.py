@@ -18,7 +18,11 @@ references.
 
 With ``parse_only`` set, each slice is parsed to its end (every syntax
 element, the end of the slice data) and not reconstructed: the syntax
-check of a picture whose references are not decoded.
+check of a picture whose references are not decoded. The reference
+pictures are still marked, without samples, so that a B slice parsed
+after its anchors finds both reference lists. With ``headers_only`` set,
+a slice's header is read and its picture marked, and its data is not:
+the anchors of a B slice whose data another process parses.
 """
 
 from __future__ import annotations
@@ -167,6 +171,7 @@ class H264Decoder:
         self._prev_poc_msb = 0
         self._prev_poc_lsb = 0
         self.parse_only = False          # parse each slice, reconstruct none
+        self.headers_only = False        # read slice headers and marking only
         self.parsed = 0                  # slices parsed in parse-only mode
 
     # -- top level ------------------------------------------------------
@@ -236,7 +241,8 @@ class H264Decoder:
             self.dpb.clear()
             self._group += 1
             self._prev_poc_msb = self._prev_poc_lsb = 0
-        poc = 2 * len(self.frames)                # poc_type 2: decode order
+        # poc_type 2: decode order
+        poc = 2 * (len(self.frames) + self.parsed)
         if sp.poc_type == 0:
             lsb = br.u(sp.log2_max_poc_lsb)       # pic_order_cnt_lsb
             max_lsb = 1 << sp.log2_max_poc_lsb
@@ -290,6 +296,13 @@ class H264Decoder:
             if deblock_idc != 1:
                 br.se()
                 br.se()
+
+        if self.headers_only:
+            if ref_idc:
+                self._mark_ref(RP.RefPic(poc=poc, frame_num=fn,
+                                         planes=None), mmco)
+            self.parsed += 1
+            return
 
         w16, h16 = sp.mb_width * 16, sp.mb_height * 16
         y = np.zeros((h16, w16), np.int32)
@@ -363,11 +376,12 @@ class H264Decoder:
                 raise DecodeError("B picture without both anchor "
                                   "references")
             ctx["list0_pics"], ctx["list1_pics"] = lst0, lst1
+            ctx["col"] = lst1[0]
+        if is_b and not self.parse_only:
             ctx["list0"] = [r.planes_i32()
                             for r in lst0]
             ctx["list1"] = [r.planes_i32()
                             for r in lst1]
-            ctx["col"] = lst1[0]
             if pp.weighted_bipred == 2:
                 w0 = np.zeros((num_ref0, num_ref1), np.int32)
                 w1 = np.zeros((num_ref0, num_ref1), np.int32)
@@ -391,6 +405,9 @@ class H264Decoder:
         if is_i:
             intra_mb[:, :] = True
         if self.parse_only:
+            if ref_idc:
+                self._mark_ref(RP.RefPic(poc=poc, frame_num=fn,
+                                         planes=None), mmco)
             self.parsed += 1
             return
 
@@ -472,16 +489,9 @@ class H264Decoder:
                                        ctx["mv8_l1"])
                     col_ref0 = np.where(use0, col_ref0,
                                         ctx["ref8_l1"] == 0)
-            max_fn = 1 << sp.log2_max_frame_num
-            if mmco:
-                RP.apply_marking(self.dpb, mmco, fn, max_fn,
-                                 sp.num_ref_frames)
-            self.dpb.append(RP.RefPic(poc=poc, frame_num=fn,
-                                      planes=self.ref, col_mv8=col_mv8,
-                                      col_ref0=col_ref0))
-            if not mmco:
-                RP.apply_marking(self.dpb, [], fn, max_fn,
-                                 sp.num_ref_frames)
+            self._mark_ref(RP.RefPic(poc=poc, frame_num=fn,
+                                     planes=self.ref, col_mv8=col_mv8,
+                                     col_ref0=col_ref0), mmco)
         self.frames.append(DecodedFrame(crop_y, crop_u, crop_v, is_idr))
         self._order.append((self._group, poc))
         if getattr(self, "collect_stats", False):
@@ -500,6 +510,20 @@ class H264Decoder:
                         axis=(1, 3))).sum()),
                 "n_mb": int(im.size),
             })
+
+    def _mark_ref(self, pic, mmco: list) -> None:
+        """Store a reference picture in the DPB with its marking (8.2.5):
+        the MMCO ops before it, or the sliding window after it."""
+        from . import refpic as RP
+        sp = self.sp
+        max_fn = 1 << sp.log2_max_frame_num
+        if mmco:
+            RP.apply_marking(self.dpb, mmco, pic.frame_num, max_fn,
+                             sp.num_ref_frames)
+        self.dpb.append(pic)
+        if not mmco:
+            RP.apply_marking(self.dpb, [], pic.frame_num, max_fn,
+                             sp.num_ref_frames)
 
     def _parse_cabac_py(self, ctx, payload: bytes, qp: int, is_i: bool,
                         is_b: bool, init_idc: int, i_rows: list | None,

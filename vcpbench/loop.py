@@ -22,6 +22,9 @@ import os
 import time
 
 
+PROBE_ITERATIONS = 300_000
+
+
 @dataclasses.dataclass
 class Task:
     index: int
@@ -30,6 +33,18 @@ class Task:
     t1: float = 0.0
     frames: int = 0
     error: str = ""
+    probe_s: float | None = None     # the host probe timed before it
+
+
+def host_probe() -> float:
+    """Seconds that a fixed loop of Python arithmetic takes: the host's
+    speed for the interpreter at this moment, read beside each task of a
+    traced window so that a task's time can be read against its host."""
+    t = time.perf_counter()
+    acc = 0
+    for i in range(PROBE_ITERATIONS):
+        acc += i * i
+    return time.perf_counter() - t
 
 
 class Spans:
@@ -69,14 +84,20 @@ def run_task(i: int, src: str, out_dir: str, args: str, device: str,
 
 
 def closed_loop(src: str, out_dir: str, args: str, device: str,
-                frames: int, seconds: float, spans: Spans | None = None):
+                frames: int, seconds: float, spans: Spans | None = None,
+                probe: bool = False):
     """Tasks back to back until one ends at or after ``seconds``:
-    (tasks, window start, window end) on ``time.perf_counter``."""
+    (tasks, window start, window end) on ``time.perf_counter``. With
+    ``probe`` the host probe is timed before each task: outside the
+    task's own clock, but inside the window (a traced window only, from
+    which no ``fps`` is read)."""
     tasks = []
     t0 = time.perf_counter()
     while True:
+        p = host_probe() if probe else None
         tasks.append(run_task(len(tasks), src, out_dir, args, device,
                               frames, spans))
+        tasks[-1].probe_s = p
         if tasks[-1].t1 - t0 >= seconds:
             return tasks, t0, tasks[-1].t1
 
